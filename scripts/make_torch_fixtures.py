@@ -1,0 +1,115 @@
+"""Make the PyTorch port's decode fixtures with the JAX package on the CPU.
+
+The port (tpucdc_torch/) cannot import JAX, so its parity checks on the card
+read reference outputs that the JAX package made here. This script builds
+the served flagship (``artifacts/flagship.json``: the
+``build_eval_config(wide=True, unet="medium", prediction="residual")`` model
+on ``artifacts/flagship_params.npz``, serving dial 5 steps / truncate 0.15 /
+γ 0.5) under F32_POLICY, so that every σ → row-index decision is f32, and
+writes into ``tpucdc_torch/fixtures/``:
+
+  flagship_384x512.npz — one 384×512 holdout crop (the first crop of
+      ``scripts/train_rd_sweep.py::split_eval_images("holdout")``):
+        blob            the ``compress(optimize_gamma="spatial")`` bitstream
+                        (the flagship's encode default; a v5 container);
+        z_* / y_*       the JAX runtime's ``export_cdf_tables()``;
+        z_sym, indexes, y_sym   what ``_decode_symbols`` decodes;
+        eps             the initial ε JAX's ``decompress(rng=key(0))`` draws;
+        mean_u8         JAX ``decompress(steps=0)`` (the mean decode x̄);
+        serve_u8        JAX ``decompress()`` (the served decode).
+  flagship_768x512.tpucdc — a plain ``compress`` of bench.py's image
+      (``synthetic_images(1, 512, 768, seed=7)[0]``), for timing.
+
+Usage (from the repo root; under a minute on a CPU host):
+    python scripts/make_torch_fixtures.py
+"""
+
+import dataclasses
+import json
+import pathlib
+import sys
+import time
+
+import jax
+
+jax.config.update("jax_platforms", "cpu")
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "scripts"))
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from train_rd_sweep import build_eval_config, split_eval_images  # noqa: E402
+
+from tpucdc.data import synthetic_images  # noqa: E402
+from tpucdc.model import CDCModel  # noqa: E402
+from tpucdc.ops import make_schedule  # noqa: E402
+from tpucdc.pipelines.codec_runtime import CodecRuntime  # noqa: E402
+from tpucdc.runtime import F32_POLICY  # noqa: E402
+from tpucdc.sampling.ddim import _normal, _rng_streams  # noqa: E402
+from tpucdc.utils.checkpoint import load_params_npz  # noqa: E402
+
+# The imported scripts point JAX's persistent compile cache outside the
+# checkout; this script writes nothing there.
+jax.config.update("jax_enable_compilation_cache", False)
+
+OUT = ROOT / "tpucdc_torch" / "fixtures"
+
+
+def flagship_runtime():
+    spec = json.loads((ROOT / "artifacts" / "flagship.json").read_text())
+    serving = spec["serving"]
+    cfg = build_eval_config(bool(spec["wide"]), spec["unet"],
+                            spec["prediction"])
+    cfg = dataclasses.replace(cfg, sample=dataclasses.replace(
+        cfg.sample, steps=int(serving["steps"]),
+        truncate_frac=float(serving["truncate_frac"]),
+        blend_gamma=float(serving["gamma"])))
+    model = CDCModel(cfg.model.validated(), policy=F32_POLICY)
+    sched = make_schedule(cfg.model.schedule.kind,
+                          cfg.model.schedule.num_steps)
+    tables = {"sqrt_ab": sched.sqrt_alpha_bars,
+              "sqrt_1mab": sched.sqrt_one_minus_alpha_bars}
+    x = jnp.zeros((1, 64, 64, 3), jnp.float32)
+    abstract = jax.eval_shape(
+        lambda: model.init(jax.random.key(0), x, jax.random.key(0), tables))
+    params = load_params_npz(ROOT / spec["params_npz"], abstract)
+    return CodecRuntime(cfg, model, params)
+
+
+def main():
+    t0 = time.time()
+    OUT.mkdir(parents=True, exist_ok=True)
+    rt = flagship_runtime()
+
+    crop = split_eval_images("holdout")[0]
+    blob = rt.compress(crop, optimize_gamma="spatial")
+    hdr, z_sym, _, (ph, pw) = rt._host_z_stage(blob)
+    _, indexes = rt._hyper_means_indexes(jnp.asarray(z_sym))
+    _, y_sym, _, _ = rt._decode_symbols(blob)
+    _, init_rng = _rng_streams(jax.random.key(0))
+    eps = _normal(init_rng, (1, ph, pw, 3))
+    mean_u8 = rt.decompress(blob, steps=0)
+    serve_u8 = rt.decompress(blob, rng=jax.random.key(0))
+    np.savez_compressed(
+        OUT / "flagship_384x512.npz",
+        blob=np.frombuffer(blob, np.uint8),
+        z_sym=np.asarray(z_sym, np.int32),
+        indexes=np.asarray(indexes, np.uint8),
+        y_sym=np.asarray(y_sym, np.int32),
+        eps=np.asarray(eps, np.float32),
+        mean_u8=mean_u8, serve_u8=serve_u8,
+        **rt.export_cdf_tables())
+    print(f"flagship_384x512.npz: {len(blob)} B blob, header v5 grid "
+          f"{None if hdr.gamma_grid is None else hdr.gamma_grid.shape}, "
+          f"{time.time() - t0:.1f} s")
+
+    img = synthetic_images(1, 512, 768, seed=7)[0]
+    (OUT / "flagship_768x512.tpucdc").write_bytes(rt.compress(img))
+    print(f"done in {time.time() - t0:.1f} s")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,130 @@
+"""Shared set-up for the tests that hold tpucdc_torch against tpucdc.
+
+Both packages get the same weights and inputs: JAX params are flattened to
+the keystr dictionary that ``save_params_npz`` writes and carried across by
+``tpucdc_torch.utils.params_from_jax``; inputs are made with numpy.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import json
+import pathlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+import tpucdc.presets as jax_presets
+from tpucdc import config as jax_config
+from tpucdc.model import CDCModel as JaxCDCModel
+from tpucdc.ops import make_schedule as jax_make_schedule
+from tpucdc.runtime import F32_POLICY as JAX_F32
+from tpucdc.utils.checkpoint import load_params_npz as jax_load_params_npz
+
+from tpucdc_torch import config as torch_config
+from tpucdc_torch.model import CDCModel
+from tpucdc_torch.runtime import F32_POLICY, set_policy
+from tpucdc_torch.utils import params_from_jax
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FLAGSHIP_NPZ = ROOT / "artifacts" / "flagship_params.npz"
+FIXTURES = ROOT / "tpucdc_torch" / "fixtures"
+
+
+def flat_params(params) -> dict:
+    """The keystr → numpy dictionary ``save_params_npz`` would write."""
+    leaves = jax.tree_util.tree_flatten_with_path(params)[0]
+    return {jax.tree_util.keystr(kp): np.asarray(v) for kp, v in leaves}
+
+
+def to_torch_config(cfg):
+    """A tpucdc Config → the equivalent tpucdc_torch Config."""
+    m = cfg.model
+    model = torch_config.ModelConfig(
+        codec=torch_config.CodecConfig(**dataclasses.asdict(m.codec)),
+        cond=torch_config.ConditioningConfig(**dataclasses.asdict(m.cond)),
+        unet=torch_config.UNetConfig(**dataclasses.asdict(m.unet)),
+        schedule=torch_config.ScheduleConfig(**dataclasses.asdict(m.schedule)),
+        prediction=m.prediction)
+    return torch_config.Config(
+        model=model,
+        sample=torch_config.SampleConfig(**dataclasses.asdict(cfg.sample)))
+
+
+def tiny_config(steps: int = 4):
+    """The tiny preset with the flagship's serving shape: residual refiner,
+    truncated chain, γ blend."""
+    cfg = jax_presets.tiny()
+    return dataclasses.replace(
+        cfg,
+        model=dataclasses.replace(cfg.model, prediction="residual"),
+        sample=dataclasses.replace(cfg.sample, steps=steps,
+                                   truncate_frac=0.15, blend_gamma=0.5))
+
+
+def init_jax(cfg, seed: int = 0, perturb: float = 0.05):
+    """F32 JAX model + params; ``perturb`` adds seeded noise to every leaf
+    (the UNet's zero-initialized output conv would otherwise hide it)."""
+    model = JaxCDCModel(cfg.model.validated(), policy=JAX_F32)
+    sched = jax_make_schedule(cfg.model.schedule.kind,
+                              cfg.model.schedule.num_steps)
+    tables = {"sqrt_ab": sched.sqrt_alpha_bars,
+              "sqrt_1mab": sched.sqrt_one_minus_alpha_bars}
+    x = jnp.zeros((1, 64, 64, 3), jnp.float32)
+    params = model.init(jax.random.key(seed), x, jax.random.key(0), tables)
+    if perturb:
+        rng = np.random.default_rng(seed)
+        params = jax.tree.map(
+            lambda p: p + perturb * rng.standard_normal(p.shape).astype(
+                np.float32), params)
+    return model, params
+
+
+@functools.lru_cache(maxsize=1)
+def flagship_jax():
+    """(config, F32 JAX model, params) of the served flagship."""
+    import sys
+    sys.path.insert(0, str(ROOT / "scripts"))
+    # The script re-points JAX's compile cache when imported; keep the
+    # test session's setting.
+    cache_dir = jax.config.jax_compilation_cache_dir
+    from train_rd_sweep import build_eval_config
+    jax.config.update("jax_compilation_cache_dir", cache_dir)
+    spec = json.loads((ROOT / "artifacts" / "flagship.json").read_text())
+    cfg = build_eval_config(True, spec["unet"], spec["prediction"])
+    serving = spec["serving"]
+    cfg = dataclasses.replace(cfg, sample=dataclasses.replace(
+        cfg.sample, steps=int(serving["steps"]),
+        truncate_frac=float(serving["truncate_frac"]),
+        blend_gamma=float(serving["gamma"])))
+    model = JaxCDCModel(cfg.model.validated(), policy=JAX_F32)
+    sched = jax_make_schedule(cfg.model.schedule.kind,
+                              cfg.model.schedule.num_steps)
+    tables = {"sqrt_ab": sched.sqrt_alpha_bars,
+              "sqrt_1mab": sched.sqrt_one_minus_alpha_bars}
+    x = jnp.zeros((1, 64, 64, 3), jnp.float32)
+    abstract = jax.eval_shape(
+        lambda: model.init(jax.random.key(0), x, jax.random.key(0), tables))
+    return cfg, model, jax_load_params_npz(FLAGSHIP_NPZ, abstract)
+
+
+def torch_model(cfg, params) -> CDCModel:
+    """The port's F32 model on the CPU carrying the same weights."""
+    model = CDCModel(to_torch_config(cfg).model)
+    state, _ = params_from_jax(flat_params(params))
+    model.load_state_dict(state, strict=True)
+    set_policy(model, F32_POLICY)
+    return model.eval()
+
+
+def t(x) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(x)))
+
+
+def maxdiff(a, b) -> float:
+    a = a.detach().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    b = b.detach().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+    return float(np.max(np.abs(a.astype(np.float64) - b.astype(np.float64))))
