@@ -11,12 +11,16 @@ in order; any failure raises, exits non-zero and prints no result line:
                 ptxas' register/spill lines.
   3. kernels  — every kernel against its plain PyTorch version on the card,
                 at every shape the 768×512 serving decode gives it (found by
-                one decode first), in bf16 and f32, plus an odd GN shape and
-                a ragged attention shape. Tolerances: f32 atol 1e-5
-                (attention 2e-5), GN+SiLU bf16 5e-2, as the JAX package's
-                Pallas parity tests; attention bf16 2e-2·max|reference|,
-                since its outputs are too small for a fixed 5e-2 to fail a
-                kernel that skipped a key tile.
+                one decode first; attention on the strided head views the
+                attention block hands it, and on contiguous copies), in bf16
+                and f32, plus adversarial shapes: GN with C·itemsize off 16
+                bytes, batch 3, one row, an unaligned pointer, |mean| ≫ σ;
+                attention with one query, one key, 65 keys, d in
+                {8, 24, 40, 64, 128}, strides off 16 bytes, scores × 50.
+                Tolerances: f32 atol 1e-5 (attention 2e-5), GN+SiLU bf16
+                5e-2, as the JAX package's Pallas parity tests; attention
+                bf16 2e-2·max|reference|, since its outputs are too small
+                for a fixed 5e-2 to fail a kernel that skipped a key tile.
   4. parity   — the JAX-made fixture tpucdc_torch/fixtures/flagship_384x512
                 under F32_POLICY with TF32 off: the runtime's coder tables
                 equal the JAX export stored in it; exact z/index/y symbols, mean
@@ -26,11 +30,13 @@ in order; any failure raises, exits non-zero and prints no result line:
                 f32 output; the bf16 hyper stage's index flips (a finding).
   5. timing   — 768×512 (fixtures/flagship_768x512.tpucdc): the full
                 decompress under F32_POLICY, the device stage under
-                BF16_POLICY, a stage split, and each kernel's time, bound,
-                plain time and library time at the main path's shapes.
+                BF16_POLICY, a stage split, and each kernel's time, device
+                time, bound, plain time and library time at every shape of
+                the main path.
   6. main path — the launch counts of one serving decode
                 (``CodecRuntime.decompress`` under BF16_POLICY, the JAX
-                package's serving policy), counts reset just before.
+                package's serving policy), counts reset just before: 93
+                GN+SiLU launches and 60 attention launches, no more.
 
 The last three lines are the card's name and power limit, the ``kernels``
 JSON line, and ``{"ok": true, "device": {...}}``. Details also go to
@@ -119,6 +125,15 @@ def main() -> None:
         if "registers" in line or "spill" in line or line.startswith("=="):
             say("build", line.strip())
     REPORT["build_s"] = build_s
+    # The bf16 attention kernel must hold tensor-core instructions.
+    cuobjdump = pathlib.Path(_kernels._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(_kernels.BUILD_DIR / "attention.o")],
+        capture_output=True, text=True, check=True).stdout
+    hmma = sum("HMMA" in line for line in sass.splitlines())
+    say("build", f"attention.o: {hmma} HMMA (tensor-core) instructions")
+    check(hmma > 0, "no HMMA instruction in the attention kernel")
+    REPORT["attention_hmma_instructions"] = hmma
 
     # ---- model and runtimes ----
     cfg = port.flagship_serving()
@@ -148,7 +163,11 @@ def main() -> None:
         return orig_gn(x, gamma, beta, num_groups, eps)
 
     def rec_attn(q, k, v, scale):
-        seen["attention"][(tuple(q.shape), tuple(k.shape))] += 1
+        # The layout too: the attention block passes head views of its
+        # [B, N, H·d] projections, not contiguous [B, H, N, d] tensors.
+        views = not (q.is_contiguous() or k.is_contiguous()
+                     or v.is_contiguous())
+        seen["attention"][(tuple(q.shape), tuple(k.shape), views)] += 1
         return orig_attn(q, k, v, scale)
 
     groupnorm.gn_silu_cuda, attn_mod.attention_cuda = rec_gn, rec_attn
@@ -168,16 +187,31 @@ def main() -> None:
         return (x, torch.randn(c, generator=gen, device=dev),
                 torch.randn(c, generator=gen, device=dev), groups)
 
-    def attn_inputs(qs, ks, dtype):
-        return tuple(torch.randn(s, generator=gen, device=dev).to(dtype)
-                     for s in (qs, ks, ks))
+    def attn_inputs(qs, ks, dtype, views=False):
+        """q, k, v; with ``views`` as the attention block makes them: the
+        [B, H, N, d] views of [B, N, H·d] projections."""
+        if not views:
+            return tuple(torch.randn(s, generator=gen, device=dev).to(dtype)
+                         for s in (qs, ks, ks))
+        return tuple(
+            torch.randn((b, n, h * d), generator=gen, device=dev).to(dtype)
+            .reshape(b, n, h, d).transpose(1, 2)
+            for (b, h, n, d) in (qs, ks, ks))
 
     dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
     errs = {"gn_silu": 0.0, "attention": 0.0}
-    gn_cases = list(seen["gn_silu"]) + [((3, 7, 5, 16), 4)]
-    for (shape, groups) in gn_cases:
+    # Adversarial: C·itemsize off 16 bytes (the scalar path), batch 3, one
+    # row, more images than resident blocks, the widest C (channel passes).
+    gn_cases = list(seen["gn_silu"]) + [
+        ((3, 7, 5, 16), 4), ((2, 9, 5, 20), 4), ((3, 16, 24, 64), 16),
+        ((1, 1, 1, 32), 16), ((2, 1, 1, 20), 4), ((600, 2, 2, 16), 4),
+        ((1, 3, 5, 3072), 32), ((1, 6, 5, 32), 16, "unaligned")]
+    for (shape, groups, *how) in gn_cases:
         for dn, dt in dtypes.items():
             x, g, b, G = gn_inputs(shape, groups, dt)
+            if how:   # the same slab one element into its buffer
+                x = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(shape)
+                check(x.data_ptr() % 16 != 0, "slab is not unaligned")
             got = groupnorm.gn_silu_cuda(x, g, b, G)
             want = groupnorm.gn_reference(x, g, b, G, 1e-5, fuse_silu=True)
             torch.cuda.synchronize()
@@ -188,22 +222,59 @@ def main() -> None:
             check(err <= bound, f"gn_silu {shape}/{groups} {dn} err {err}")
             if dn == "bf16" and (shape, groups) in seen["gn_silu"]:
                 errs["gn_silu"] = max(errs["gn_silu"], err)
-    attn_cases = list(seen["attention"]) + [((1, 4, 100, 24), (1, 4, 77, 24))]
-    for (qs, ks) in attn_cases:
-        for dn, dt in dtypes.items():
-            q, k, v = attn_inputs(qs, ks, dt)
-            got = attn_mod.attention_cuda(q, k, v, qs[-1] ** -0.5)
-            want = attn_mod.attention_reference(q, k, v)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            ref_max = want.float().abs().max().item()
-            bound = (ATTN_BF16_REL * ref_max if dn == "bf16"
-                     else TOL["attention"][dn])
-            say("kernels", f"attention q{qs} k{ks} {dn}: max|err| {err:.3g} "
-                f"(bound {bound:.3g}; max|ref| {ref_max:.3g})")
-            check(err <= bound, f"attention {qs} {ks} {dn} err {err}")
-            if dn == "bf16" and (qs, ks) in seen["attention"]:
-                errs["attention"] = max(errs["attention"], err)
+    # |mean| ≫ σ (f32): E[x²] − mean² would lose the variance. Against the
+    # plain version in f64; the normalised output to 1e-3.
+    for shape, groups in (((1, 64, 96, 64), 16), ((2, 9, 5, 20), 4)):
+        x = 1000.0 + torch.randn(shape, generator=gen, device=dev)
+        one, zero = x.new_ones(shape[-1]), x.new_zeros(shape[-1])
+        got = groupnorm.gn_silu_cuda(x, one, zero, groups)
+        want = groupnorm.gn_reference(x.double(), one.double(), zero.double(),
+                                      groups, 1e-5, fuse_silu=True)
+        err = (got.double() - want).abs().max().item()
+        say("kernels", f"gn_silu {shape}/{groups} f32 mean 1000, sigma 1: "
+            f"max|err| {err:.3g} (bound 0.001)")
+        check(err <= 1e-3, f"gn_silu large-mean {shape} err {err}")
+
+    def attn_case(qs, ks, dn, views=False, qkv=None, score_x=1.0, note=""):
+        q, k, v = qkv or attn_inputs(qs, ks, dtypes[dn], views)
+        scale = score_x * qs[-1] ** -0.5
+        got = attn_mod.attention_cuda(q, k, v, scale)
+        want = attn_mod.attention_reference(q, k, v, scale)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got.float()).all()), "attention not finite")
+        check(got.transpose(1, 2).is_contiguous(),
+              "attention output is not stored as [B, N, H, d]")
+        err = (got.float() - want.float()).abs().max().item()
+        ref_max = want.float().abs().max().item()
+        # f32 scores × 50 carry 50 × their rounding into the exponent.
+        bound = (ATTN_BF16_REL * ref_max if dn == "bf16"
+                 else TOL["attention"][dn] * score_x)
+        tag = ("views " if views else "") + note
+        say("kernels", f"attention q{qs} k{ks} {dn} {tag}: max|err| "
+            f"{err:.3g} (bound {bound:.3g}; max|ref| {ref_max:.3g})")
+        check(err <= bound, f"attention {qs} {ks} {dn} {tag} err {err}")
+        return err
+
+    for dn in dtypes:
+        for (qs, ks, views) in seen["attention"]:
+            for lay in sorted({views, False}):
+                err = attn_case(qs, ks, dn, views=lay)
+                if dn == "bf16":
+                    errs["attention"] = max(errs["attention"], err)
+        # Ragged, one query, one key, 65 keys, every padded head width.
+        for b, h, nq, nk, d in ((1, 4, 100, 77, 24), (1, 2, 1, 300, 24),
+                                (1, 2, 50, 1, 24), (2, 3, 40, 65, 24),
+                                (1, 2, 70, 130, 8), (1, 2, 70, 130, 40),
+                                (1, 2, 70, 130, 64), (2, 2, 70, 130, 128),
+                                (1, 1, 5, 3, 7), (1, 1, 17, 1000, 16)):
+            attn_case((b, h, nq, d), (b, h, nk, d), dn, views=d % 8 == 0)
+        attn_case((1, 4, 200, 24), (1, 4, 200, 24), dn, views=True,
+                  score_x=50.0, note="scores x50")
+        # Head slices that start off a 16-byte boundary: narrower loads.
+        wide = torch.randn((3, 1, 2, 90, 27), generator=gen,
+                           device=dev).to(dtypes[dn])
+        attn_case((1, 2, 90, 24), (1, 2, 90, 24), dn, note="pitch 27",
+                  qkv=tuple(wide[i][..., 3:27] for i in range(3)))
 
     # ---- 4. fixture parity (F32_POLICY, TF32 off) ----
     blob = fx["blob"].tobytes()
@@ -310,8 +381,29 @@ def main() -> None:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
 
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    def device_us(fn, kernel_names, iters=20):
+        """Device time per call of fn (profiler): of the named kernels, or
+        with ``None`` of every kernel the call launches."""
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(float(e.self_device_time_total)
+                    for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and (kernel_names is None
+                         or any(name in e.key for name in kernel_names)))
+        check(total > 0, f"the profiler saw no {kernel_names} kernel")
+        return total / iters
+
     per = {"gn_silu": collections.defaultdict(float),
            "attention": collections.defaultdict(float)}
+    shape_rows = []
     for (shape, groups), n in seen["gn_silu"].items():
         x, g, b, G = gn_inputs(shape, groups, torch.bfloat16)
         c = shape[-1]
@@ -324,16 +416,20 @@ def main() -> None:
                 x, g, b, G, 1e-5, True)),
             "library_ms": event_ms(lambda: F.silu(F.group_norm(
                 x_nchw, G, g.to(x.dtype), b.to(x.dtype), 1e-5))),
+            "device_ms": 1e-3 * device_us(
+                lambda: groupnorm.gn_silu_cuda(x, g, b, G), ["gn_silu_kernel"]),
             "bytes_ms": 1e3 * nbytes / HBM_BYTES_S,
             "ops_ms": 1e3 * flops / PEAK_FLOPS["f32"],
         }
         row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
         say("timing", f"gn_silu {shape}/{groups} bf16 x{n}: " + ", ".join(
             f"{k} {v:.4f}" for k, v in row.items()))
+        shape_rows.append({"kernel": "gn_silu", "shape": list(shape),
+                           "groups": groups, "calls": n, **row})
         for k, v in row.items():
             per["gn_silu"][k] += n * v
-    for (qs, ks), n in seen["attention"].items():
-        q, k, v = attn_inputs(qs, ks, torch.bfloat16)
+    for (qs, ks, views), n in seen["attention"].items():
+        q, k, v = attn_inputs(qs, ks, torch.bfloat16, views)
         b_, h_, nq, d = qs
         nk = ks[2]
         nbytes = (2 * q.numel() + 2 * k.numel()) * 2
@@ -343,12 +439,19 @@ def main() -> None:
             "plain_ms": event_ms(lambda: attn_mod.attention_reference(q, k, v)),
             "library_ms": event_ms(
                 lambda: F.scaled_dot_product_attention(q, k, v)),
+            "device_ms": 1e-3 * device_us(
+                lambda: attn_mod.attention_cuda(q, k, v, d ** -0.5),
+                ["attention_mma_kernel", "attention_fma_kernel"]),
+            "library_device_ms": 1e-3 * device_us(
+                lambda: F.scaled_dot_product_attention(q, k, v), None),
             "bytes_ms": 1e3 * nbytes / HBM_BYTES_S,
             "ops_ms": 1e3 * flops / PEAK_FLOPS["bf16"],
         }
         row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
-        say("timing", f"attention q{qs} k{ks} bf16 x{n}: " + ", ".join(
-            f"{k} {v:.4f}" for k, v in row.items()))
+        say("timing", f"attention q{qs} k{ks} bf16 {'views ' if views else ''}"
+            f"x{n}: " + ", ".join(f"{k} {v:.4f}" for k, v in row.items()))
+        shape_rows.append({"kernel": "attention", "q": list(qs),
+                           "k": list(ks), "views": views, "calls": n, **row})
         for key, val in row.items():
             per["attention"][key] += n * val
 
@@ -360,12 +463,9 @@ def main() -> None:
     say("main", f"serving decode 768x512 (BF16_POLICY): launches {launches}")
     check(out.shape == (hdr7.height, hdr7.width, 3) and out.dtype == np.uint8,
           f"bad output {out.shape} {out.dtype}")
-    gn_per_call = groupnorm.KERNELS_PER_CALL
-    check(launches["gn_silu"] >= 93 * gn_per_call
-          and launches["attention"] >= 60,
-          f"main path launches {launches} < ({93 * gn_per_call}, 60)")
-    per_call = {"gn_silu": gn_per_call, "attention": 1}
-    expected = {k: per_call[k] * sum(seen[k].values()) for k in seen}
+    check(launches == {"gn_silu": 93, "attention": 60},
+          f"main path launches {launches} != 93 GN+SiLU and 60 attention")
+    expected = {k: sum(seen[k].values()) for k in seen}
     check(launches == expected, f"launches {launches} != shapes {expected}")
 
     kernels = []
@@ -380,6 +480,8 @@ def main() -> None:
                          else "operations"),
             "library_ms": p["library_ms"]})
     REPORT["kernels"] = kernels
+    REPORT["device_ms"] = {name: per[name]["device_ms"] for name in per}
+    REPORT["shapes"] = shape_rows
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(REPORT, indent=1))
 

@@ -9,8 +9,9 @@ serving policy) and F32_POLICY, and reports per decode:
   the summed device time of all CUDA kernels in the traced decodes, and the
   device's busy and idle shares of that wall time (kernels run on one
   stream, so their sum is the busy time);
-- the number of kernel launches;
-- device time by group: the port's GN+SiLU kernels, its attention kernel,
+- the number of kernel launches, and how many of them are copy kernels
+  (dtype casts and ``.contiguous()`` copies);
+- device time by group: the port's GN+SiLU kernel, its attention kernels,
   convolutions and matrix products, and everything else;
 - the busiest kernels by name, and each port kernel's device time per launch.
 
@@ -35,8 +36,9 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 BLOB = ROOT / "tpucdc_torch" / "fixtures" / "flagship_768x512.tpucdc"
 WEIGHTS = ROOT / "artifacts" / "flagship_params.npz"
-PORT_KERNELS = {"gn_stats_kernel": "gn_silu", "gn_apply_kernel": "gn_silu",
-                "attention_kernel": "attention"}
+PORT_KERNELS = {"gn_silu_kernel": "gn_silu",
+                "attention_mma_kernel": "attention",
+                "attention_fma_kernel": "attention"}
 MATMUL_HINTS = ("conv", "gemm", "xmma", "cutlass", "wgrad", "dgrad", "sm90_",
                 "implicit", "winograd", "fft", "cudnn")
 
@@ -88,6 +90,7 @@ def profile(runtime, blob: bytes, decodes: int) -> dict:
         groups[_group(e.key)] += _device_us(e) / 1e3 / decodes
         launches += e.count
     busy_ms = sum(groups.values())
+    copies = sum(e.count for e in kernels if "copy" in e.key.lower())
     top = sorted(kernels, key=_device_us, reverse=True)[:12]
     per_launch = {}
     for e in kernels:
@@ -102,6 +105,7 @@ def profile(runtime, blob: bytes, decodes: int) -> dict:
         "device_busy_share": busy_ms / wall_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "kernel_launches_per_decode": launches / decodes,
+        "copy_kernel_launches_per_decode": copies / decodes,
         "device_ms_by_group": dict(groups),
         "port_kernels": per_launch,
         "top_kernels": [{"name": e.key[:90], "ms_per_decode":
@@ -138,7 +142,8 @@ def main() -> None:
         r = report[name]
         print(f"[{name}] wall {r['wall_ms']:.2f} ms/decode, device busy "
               f"{r['device_busy_ms']:.2f} ms ({100 * r['device_busy_share']:.1f} "
-              f"%), {r['kernel_launches_per_decode']:.0f} kernel launches; "
+              f"%), {r['kernel_launches_per_decode']:.0f} kernel launches "
+              f"({r['copy_kernel_launches_per_decode']:.0f} copies); "
               f"by group (ms): " + ", ".join(
                   f"{k} {v:.3f}" for k, v in r["device_ms_by_group"].items()),
               flush=True)

@@ -100,11 +100,13 @@ class AttentionBlock(nn.Module):
         kv_src = tokens if context is None else context
 
         def heads(t):
+            # The [B, H, N, d] view of a [B, N, H·d] projection: no copy.
             return t.reshape(b, t.shape[1], self.num_heads,
-                             c // self.num_heads).transpose(1, 2).contiguous()
+                             c // self.num_heads).transpose(1, 2)
 
         out = attention(heads(self.q(tokens, dt)), heads(self.k(kv_src, dt)),
                         heads(self.v(kv_src, dt)))
+        # attention stores its result as [B, N, H, d]: this reshape is a view.
         out = out.transpose(1, 2).reshape(b, hgt * wid, c)
         out = self.proj(out, dt)
         return x + out.reshape(b, hgt, wid, c)

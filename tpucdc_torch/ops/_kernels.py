@@ -8,9 +8,9 @@ the stream are passed as ``c_void_p``; each entry point returns
 ``cudaGetLastError()`` and the wrapper raises if it is not 0.
 
 ``LAUNCHES`` counts, per kernel, the device launches made through the
-wrappers in ``ops/groupnorm.py`` (two per call: statistics, then apply) and
-``ops/attention.py`` (one per call). A run reads it to show that a path went
-through the kernels.
+wrappers in ``ops/groupnorm.py`` and ``ops/attention.py``: one per call for
+each (GN+SiLU is one cooperative launch). A run reads it to show that a path
+went through the kernels.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ LIBRARY = BUILD_DIR / "libtpucdc_torch_kernels.so"
 PTXAS_LOG = BUILD_DIR / "ptxas.log"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
+# Device launches per kernel; each wrapper adds 1 where it launches.
 LAUNCHES = {"gn_silu": 0, "attention": 0}
 
 _lib = None
@@ -93,7 +94,9 @@ def library():
         lib.tpucdc_gn_silu.restype = i
         lib.tpucdc_gn_silu.argtypes = [p, p, p, p, p, i, i, i, i, i, f, i, p]
         lib.tpucdc_attention.restype = i
-        lib.tpucdc_attention.argtypes = [p, p, p, p, i, i, i, i, f, i, p]
+        lib.tpucdc_attention.argtypes = [p, p, p, p, i, i, i, i, i,
+                                         ctypes.POINTER(ctypes.c_longlong),
+                                         f, i, p]
         _lib = lib
     return _lib
 

@@ -4,16 +4,24 @@ On a CUDA tensor ``attention`` launches the hand-written kernel of
 ``csrc/attention.cu`` (which replaces the JAX package's Pallas kernel) for
 every shape: there is no size gate and no fallback. On a CPU tensor it runs
 the plain version beside it.
+
+The public layout is the JAX package's ``[B, H, N, d]``, but q, k and v may
+be any views with a contiguous last dimension: the head view of a
+``[B, N, H*d]`` projection is read in place. The result is allocated as
+``[B, N, H, d]`` and returned as its ``[B, H, N, d]`` view, so that
+``out.transpose(1, 2).reshape(B, N, H*d)`` copies nothing.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from tpucdc_torch.ops import _kernels
 
 _MAX_HEAD_DIM = 128
-_MAX_BATCH_HEADS = 65535   # grid.y of the launch
+_MAX_BLOCKS = 2 ** 31 - 1   # grid.x of the launch: row tiles × B·H
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -29,6 +37,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return attention_reference(q, k, v, scale)
 
 
+def _head_major(out_bhnd: torch.Tensor, dtype) -> torch.Tensor:
+    """[B,H,N,d] values stored as [B,N,H,d], returned as the [B,H,N,d] view."""
+    b, h, n, d = out_bhnd.shape
+    stored = torch.empty((b, n, h, d), dtype=dtype, device=out_bhnd.device)
+    stored.copy_(out_bhnd.transpose(1, 2))
+    return stored.transpose(1, 2)
+
+
 def attention_reference(q, k, v, scale: float | None = None) -> torch.Tensor:
     """Plain version: mirrors tpucdc/ops/attention.py::attention_reference."""
     if scale is None:
@@ -38,31 +54,78 @@ def attention_reference(q, k, v, scale: float | None = None) -> torch.Tensor:
     weights = torch.softmax(logits, dim=-1)
     out = torch.matmul(weights.to(q.dtype).to(torch.float32),
                        v.to(torch.float32))
-    return out.to(q.dtype)
+    return _head_major(out, q.dtype)
+
+
+def attention_tiled_reference(q, k, v, scale: float | None = None,
+                              tile: int = 64, splits: int = 4) -> torch.Tensor:
+    """Plain mirror of the kernel's arithmetic, for the tests.
+
+    Keys are taken in tiles of ``tile``; tile i goes to split ``i % splits``.
+    Each split keeps a running max m, a running sum l and an accumulator:
+    per tile the f32 scores raise m, l and the accumulator are rescaled by
+    exp(m_old − m_new), P = exp(s − m_new) is rounded to the V dtype (against
+    the running max, not the final one) before P·V, and l sums the unrounded
+    P. The last tile may be ragged. The splits are merged by their maxima at
+    the end, and the result is divided by the merged l.
+    """
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    qf = q.to(torch.float32)
+    nk = k.shape[2]
+    lead = q.shape[:3]
+    state = [(qf.new_full((*lead, 1), float("-inf")), qf.new_zeros((*lead, 1)),
+              torch.zeros_like(qf)) for _ in range(splits)]
+    for i, j0 in enumerate(range(0, nk, tile)):
+        m, l, acc = state[i % splits]
+        kt = k[:, :, j0:j0 + tile].to(torch.float32)
+        vt = v[:, :, j0:j0 + tile].to(torch.float32)
+        s = torch.matmul(qf, kt.transpose(-1, -2)) * scale
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + torch.matmul(p.to(v.dtype).to(torch.float32), vt)
+        state[i % splits] = (m_new, l, acc)
+    m, l, acc = state[0]           # split 0 saw key 0: its m is finite
+    for m_s, l_s, acc_s in state[1:]:
+        m_tot = torch.maximum(m, m_s)
+        a, b = torch.exp(m - m_tot), torch.exp(m_s - m_tot)
+        l, acc, m = l * a + l_s * b, acc * a + acc_s * b, m_tot
+    return _head_major(acc / l, q.dtype)
 
 
 def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    scale: float) -> torch.Tensor:
-    """Launch the attention kernel on contiguous [B,H,N,d] CUDA tensors."""
+    """Launch the attention kernel on [B,H,N,d] CUDA tensors or views."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("attention_cuda takes CUDA tensors")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError("q must be [B,H,Nq,d] and k, v the same [B,H,Nk,d]")
     b, h, nq, d = q.shape
+    nk = k.shape[2]
     if k.shape[:2] != (b, h) or k.shape[3] != d:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
-    if not 1 <= d <= _MAX_HEAD_DIM or b * h > _MAX_BATCH_HEADS:
-        raise ValueError(f"attention kernel takes d <= {_MAX_HEAD_DIM}")
+    if not 1 <= d <= _MAX_HEAD_DIM or nq < 1 or nk < 1:
+        raise ValueError(f"attention kernel takes 1 <= d <= {_MAX_HEAD_DIM} "
+                         f"and at least one query and one key")
+    if b * h * -(-nq // 16) > _MAX_BLOCKS:
+        raise ValueError("attention kernel: too many row tiles for one grid")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError("q, k and v must share one dtype")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("attention_cuda takes contiguous tensors")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k and v must be on one device")
+    if d > 1 and not (q.stride(3) == k.stride(3) == v.stride(3) == 1):
+        raise ValueError("attention_cuda takes a contiguous last dimension")
     dtype = _kernels.dtype_code(q.dtype)
-    out = torch.empty_like(q)
+    out = torch.empty((b, nq, h, d), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    strides = (ctypes.c_longlong * 12)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
     lib = _kernels.library()
     rc = lib.tpucdc_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, nq,
-        k.shape[2], d, float(scale), dtype,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, nq,
+        nk, d, strides, float(scale), dtype,
         torch.cuda.current_stream(q.device).cuda_stream)
     _kernels.check(rc, "attention")
     _kernels.LAUNCHES["attention"] += 1
