@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's served flagship decode on one CUDA card and check it.
+"""Drive the PyTorch port's decode and encode on one CUDA card and check them.
 
 Runs the port (tpucdc_torch) only; imports nothing of JAX or tpucdc. Phases,
 in order; any failure raises, exits non-zero and prints no result line:
@@ -38,6 +38,33 @@ in order; any failure raises, exits non-zero and prints no result line:
                 package's serving policy), counts reset just before: 93
                 GN+SiLU launches and 60 attention launches, no more.
 
+  7. encode   — the flagship encodes the 384×512 crop of the fixture with
+                ``compress(optimize_gamma="spatial")`` under F32_POLICY: the
+                symbols decoded from its own bitstream are the symbols it
+                coded; against JAX's symbols for the same crop at most 0.1 %
+                differ, none by more than 1; the length is within 0.5 % of
+                JAX's; the served PSNR against the crop is at least JAX's
+                less 0.05 dB. Once more under BF16_POLICY: own round trip
+                exact.
+  8. vr       — ``artifacts/vr_wide_params.npz`` (space-channel context, 3
+                gain rows) loads strictly. For JAX's four bitstreams of
+                fixtures/vr_wide_384x512.npz (qualities 0, 1, 2 and 0.5):
+                the 8 passes fed JAX's symbols give the row indexes of
+                JAX's encoder (differences are counted per pass and
+                printed: one makes that bitstream undecodable here, a
+                finding and not a failure) and a mean decode within 1 LSB
+                of JAX's; where no index differs the bitstream must decode
+                to JAX's symbols exactly. The crop encodes at the four
+                qualities with an exact round trip, lengths within 0.5 % of
+                JAX's, rising with quality.
+  9. encode timing — 768×512 (fixtures/image_768x512.npz), BF16_POLICY:
+                ``compress`` plain and with the spatial γ search for the
+                flagship, and for the VR model at quality 1; median of 5
+                after a warm-up, and a split by stage. The launch counts of
+                one ``compress(optimize_gamma="spatial")``, counts reset
+                just before: six served decodes, 558 GN+SiLU and 360
+                attention launches.
+
 The last three lines are the card's name and power limit, the ``kernels``
 JSON line, and ``{"ok": true, "device": {...}}``. Details also go to
 chiprun_out/chip_smoke.json.
@@ -61,6 +88,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
 FIXTURES = ROOT / "tpucdc_torch" / "fixtures"
 WEIGHTS = ROOT / "artifacts" / "flagship_params.npz"
+VR_WEIGHTS = ROOT / "artifacts" / "vr_wide_params.npz"
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and FLOP/s for the
 # type each kernel computes in (bf16 on tensor cores, f32 on CUDA cores).
@@ -92,6 +120,60 @@ def check(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def psnr_db(a, b) -> float:
+    import numpy as np
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return float(10 * np.log10(255.0 ** 2 / max(mse, 1e-12)))
+
+
+class StageSplit:
+    """Exclusive wall time of a runtime's coding stages, by patching them on
+    the instance with timers. Each timed call ends with a synchronize, so
+    device work lands in the stage that queued it; the fetch does not
+    synchronize first, so it also carries the rounding queued before it.
+    Inside the γ search nothing is split: it is one stage."""
+
+    def __init__(self, torch, rt):
+        self.torch, self.acc, self.stack = torch, collections.Counter(), []
+        self.in_search = False
+        self._patched = []
+        for owner, attr, name, sync_first in (
+                (rt, "_analysis", "analysis", True),
+                (rt, "_params", "entropy_params", True),
+                (rt.model, "hyper_features", "entropy_params", True),
+                (rt, "_fetch", "round_fetch", False),
+                (rt.z_codec, "encode", "z_rans", True),
+                (rt.y_codec, "encode", "y_rans", True),
+                (rt, "_optimize_gamma", "gamma_search", True)):
+            setattr(owner, attr,
+                    self._wrap(getattr(owner, attr), name, sync_first))
+            self._patched.append((owner, attr))
+
+    def _wrap(self, fn, name, sync_first):
+        def timed(*args, **kwargs):
+            if self.in_search:
+                return fn(*args, **kwargs)
+            if sync_first:
+                self.torch.cuda.synchronize()
+            self.in_search = name == "gamma_search"
+            t0 = time.perf_counter()
+            self.stack.append(0.0)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.torch.cuda.synchronize()
+                self.in_search = False
+                dt = 1e3 * (time.perf_counter() - t0)
+                self.acc[name] += dt - self.stack.pop()
+                if self.stack:
+                    self.stack[-1] += dt
+        return timed
+
+    def restore(self):
+        for owner, attr in self._patched:
+            delattr(owner, attr)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -103,6 +185,7 @@ def main() -> None:
     import tpucdc_torch as port
     from tpucdc_torch.entropy import _build as rans_build
     from tpucdc_torch.ops import _kernels
+    from tpucdc_torch.pipelines import codec_runtime
     # The wrapper modules (the package namespace re-exports their functions).
     attn_mod = importlib.import_module("tpucdc_torch.ops.attention")
     groupnorm = importlib.import_module("tpucdc_torch.ops.groupnorm")
@@ -278,7 +361,7 @@ def main() -> None:
 
     # ---- 4. fixture parity (F32_POLICY, TF32 off) ----
     blob = fx["blob"].tobytes()
-    hdr, z_sym, y_bytes, (ph, pw) = rt32._host_z_stage(blob)
+    hdr, z_sym, (y_bytes,), (ph, pw) = rt32._host_z_stage(blob)
     means, idx = rt32._hyper_stage(z_sym)
     y_sym = rt32.y_codec.decode(y_bytes, idx)
     mism = {"z_sym": int(np.sum(z_sym != fx["z_sym"])),
@@ -334,7 +417,7 @@ def main() -> None:
         return statistics.median(times)
 
     full32 = host_median(lambda: rt32.decompress(blob768))
-    hdr7, z7, yb7, (ph7, pw7) = rt16._host_z_stage(blob768)
+    hdr7, z7, (yb7,), (ph7, pw7) = rt16._host_z_stage(blob768)
     m7, i7 = rt16._hyper_stage(z7)
     y7 = torch.from_numpy(rt16.y_codec.decode(yb7, i7)).to(dev)
     gamma7 = cfg.sample.blend_gamma
@@ -346,7 +429,7 @@ def main() -> None:
         parts = collections.defaultdict(list)
         for _ in range(6):
             t = time.perf_counter()
-            h, z, yb, (a, b) = rt._host_z_stage(blob768)
+            h, z, (yb,), (a, b) = rt._host_z_stage(blob768)
             t1 = time.perf_counter()
             m, i = rt._hyper_stage(z)
             t2 = time.perf_counter()
@@ -468,12 +551,232 @@ def main() -> None:
     expected = {k: sum(seen[k].values()) for k in seen}
     check(launches == expected, f"launches {launches} != shapes {expected}")
 
+    # ---- 7. encode: the flagship on the fixture's crop ----
+    def round_trip(rt, img, blob, quality=0):
+        """Symbols decoded from ``blob`` against the ones the encoder's
+        stages code; returns the decoded (z, y)."""
+        x = torch.from_numpy(codec_runtime.to_model_range(
+            codec_runtime.pad_image(img)[0]))[None].to(dev)
+        y, z_enc = rt._analysis(x, quality)
+        z_enc = z_enc.cpu().numpy()
+        y_enc, _, _ = rt._y_passes(z_enc, y=y)
+        _, z_dec, _, _ = rt._host_z_stage(blob)
+        _, y_dec, _, _ = rt._decode_symbols(blob)
+        y_dec = y_dec.cpu().numpy()
+        bad = int(np.sum(z_dec != z_enc)) + int(
+            np.sum(y_dec != y_enc.cpu().numpy()))
+        check(bad == 0, f"own round trip: {bad} symbols differ")
+        return z_dec, y_dec
+
+    def against(mine, theirs):
+        """(differing symbols, largest difference) of two (z, y) pairs."""
+        n = sum(int(np.sum(a != b)) for a, b in zip(mine, theirs))
+        worst = max(int(np.abs(a.astype(np.int64) - b).max())
+                    for a, b in zip(mine, theirs))
+        return n, worst
+
+    crop = fx["crop_u8"]
+    t0 = time.perf_counter()
+    enc = rt32.compress(crop, optimize_gamma="spatial")
+    enc_s = time.perf_counter() - t0
+    ehdr, _ = port.entropy.read_bitstream(enc)
+    mine = round_trip(rt32, crop, enc)
+    n_diff, worst = against(mine, (fx["z_sym"], fx["y_sym"]))
+    n_sym = fx["z_sym"].size + fx["y_sym"].size
+    jax_len = fx["blob"].size
+    grid_won = ehdr.gamma_grid is not None
+    jhdr, _ = port.entropy.read_bitstream(fx["blob"].tobytes())
+    say("encode", f"flagship 384x512 F32_POLICY compress(optimize_gamma="
+        f"'spatial') in {enc_s:.2f} s (first call): own round trip exact; "
+        f"{n_diff} of {n_sym} symbols differ from JAX's (bound 0.1 %), "
+        f"largest difference {worst} (bound 1); {len(enc)} B against JAX's "
+        f"{jax_len} B (bound 0.5 %)")
+    say("encode", f"gamma picked {ehdr.gamma} (JAX {jhdr.gamma}), grid "
+        f"{'won' if grid_won else 'lost'} (JAX's "
+        f"{'won' if jhdr.gamma_grid is not None else 'lost'})"
+        + (f", grid {ehdr.gamma_grid.tolist()}" if grid_won else ""))
+    check(n_diff <= 1e-3 * n_sym and worst <= 1, "symbols differ from JAX's")
+    check(abs(len(enc) - jax_len) <= 5e-3 * jax_len, "length differs from JAX's")
+    psnr_port = psnr_db(rt32.decompress(enc), crop)
+    psnr_jax = psnr_db(fx["serve_u8"], crop)
+    say("encode", f"served PSNR against the crop: port {psnr_port:.3f} dB, "
+        f"JAX {psnr_jax:.3f} dB (bound: JAX's less 0.05)")
+    check(psnr_port >= psnr_jax - 0.05, "served PSNR below JAX's")
+    enc16 = rt16.compress(crop, optimize_gamma="spatial")
+    mine16 = round_trip(rt16, crop, enc16)
+    n16, worst16 = against(mine16, (fx["z_sym"], fx["y_sym"]))
+    say("encode", f"BF16_POLICY: own round trip exact; {len(enc16)} B; "
+        f"{n16} symbols differ from JAX's f32 ones, largest {worst16} "
+        f"(bf16 g_a and h_a; a finding, not a gate)")
+    REPORT["encode"] = {
+        "symbols": n_sym, "differ_from_jax": n_diff, "largest": worst,
+        "bytes": len(enc), "jax_bytes": int(jax_len), "gamma": ehdr.gamma,
+        "grid_won": grid_won, "psnr_db": psnr_port, "jax_psnr_db": psnr_jax,
+        "bf16_bytes": len(enc16), "bf16_differ_from_jax_f32": n16}
+
+    # ---- 8. vr: the variable-rate, space-channel checkpoint ----
+    vcfg = port.vr_wide_serving()
+    vmodel = port.CDCModel(vcfg.model)
+    vstate, vunused = port.load_params_npz(VR_WEIGHTS)
+    check(len(vstate) == 438 and not vunused, "vr_wide: arrays left unused")
+    vmodel.load_state_dict(vstate, strict=True)
+    vfx = np.load(FIXTURES / "vr_wide_384x512.npz")
+    rtv32 = port.CodecRuntime(vcfg, copy.deepcopy(vmodel), device=dev,
+                              policy=port.F32_POLICY)
+    rtv16 = port.CodecRuntime(vcfg, vmodel, device=dev,
+                              policy=port.BF16_POLICY)
+    def forced_passes(rt, z_sym, y_sym, jax_idx):
+        """Run the decoder's passes with each pass's symbols taken from
+        ``y_sym`` (JAX's) and not from the coder. Returns (row indexes that
+        differ from JAX's, per pass; for each such index this side's σ
+        beside the table scale of JAX's row; the assembled y symbols; μ)."""
+        am = port.codec.checkerboard_mask(*y_sym.shape[1:3], True)[..., 0] > 0
+        mg = 2 * y_sym.shape[-1] // len(jax_idx)
+        table = np.asarray(rt.gaussian.scale_table, np.float32)
+        flips, near, sigmas = [], [], []
+        build = rt.gaussian.build_indexes
+
+        def recording_build(scales):
+            sigmas.append(scales)
+            return build(scales)
+
+        def forced(_stream, idx_np):
+            k = len(flips)
+            mask = am if k % 2 == 0 else ~am
+            differ = idx_np[0] != jax_idx[k]
+            flips.append(int(np.sum(differ)))
+            if flips[-1]:
+                sigma = sigmas[-1][:, torch.from_numpy(mask).to(dev)]
+                for here, row in zip(sigma[0].cpu().numpy()[differ],
+                                     jax_idx[k][differ]):
+                    near.append({"pass": k, "sigma": float(here),
+                                 "jax_row": int(row),
+                                 "jax_row_scale": float(table[row])})
+            part = y_sym[..., (k // 2) * mg:(k // 2 + 1) * mg]
+            return part[:, mask].astype(np.int32)
+
+        rt.y_codec.decode, rt.gaussian.build_indexes = forced, recording_build
+        try:
+            sym, means, _ = rt._y_passes(z_sym, streams=[b""] * len(jax_idx))
+        finally:
+            del rt.y_codec.decode, rt.gaussian.build_indexes
+        return flips, near, sym, means
+
+    vr_rows = {}
+    for q in (float(v) for v in vfx["qualities"]):
+        tag = "q" + f"{q:g}".replace(".", "p")
+        jblob = vfx[f"blob_{tag}"].tobytes()
+        theirs = (vfx[f"z_sym_{tag}"], vfx[f"y_sym_{tag}"])
+        jhdr, z_dec, _, (vph, vpw) = rtv32._host_z_stage(jblob)
+        check(np.array_equal(z_dec, theirs[0]), f"vr q{q:g}: z symbols differ")
+        # Every pass fed JAX's symbols: which row indexes would the card
+        # compute differently from the encoder that wrote this bitstream?
+        flips, near, sym, means = forced_passes(rtv32, z_dec, theirs[1],
+                                                vfx[f"indexes_{tag}"])
+        check(np.array_equal(sym.cpu().numpy(), theirs[1]),
+              "forced passes do not reassemble the symbols")
+        _, inv_gain = rtv32.quality_gains(
+            jhdr.quality_id if jhdr.quality_f_or_none is None
+            else jhdr.quality_f)
+        mean_u8 = rtv32._device_stage(sym, means, 0, 0.0, 0.0, vph, vpw,
+                                      inv_gain=inv_gain).cpu().numpy()[0]
+        d_mean = np.abs(mean_u8[:jhdr.height, :jhdr.width].astype(int)
+                        - vfx[f"mean_u8_{tag}"].astype(int)).max()
+        if any(flips):
+            # A σ within float noise of a scale-table boundary lands in the
+            # next row on this side: rANS cannot decode this bitstream here.
+            say("vr", f"quality {q:g}: FINDING: JAX's bitstream is not "
+                f"decodable on this device: row indexes that differ from "
+                f"the JAX encoder's, per pass {flips} of "
+                f"{vfx[f'indexes_{tag}'][0].size} each; this side's sigma "
+                f"beside the scale of JAX's row: " + "; ".join(
+                    f"pass {e['pass']}: {e['sigma']!r} against row "
+                    f"{e['jax_row']} = {e['jax_row_scale']!r}" for e in near))
+            n = None
+        else:
+            _, y_dec, _, _ = rtv32._decode_symbols(jblob)
+            n, _ = against((z_dec, y_dec.cpu().numpy()), theirs)
+            check(n == 0, f"vr q{q:g}: {n} symbols of JAX's bitstream differ")
+            check(np.array_equal(rtv32.decompress(jblob, steps=0),
+                                 mean_u8[:jhdr.height, :jhdr.width]),
+                  "decompress(steps=0) differs from the forced passes")
+        mine = rtv32.compress(crop, quality=q)
+        n_enc, worst_enc = against(round_trip(rtv32, crop, mine, q), theirs)
+        say("vr", f"quality {q:g}: row-index flips per pass {flips}; JAX's "
+            f"bitstream decodes with {n} symbol mismatches (bound 0), mean "
+            f"decode max|diff| {d_mean} LSB (bound 1); own round trip "
+            f"exact, {len(mine)} B against JAX's {len(jblob)} B (bound "
+            f"0.5 %), {n_enc} symbols differ from JAX's encoder, largest "
+            f"{worst_enc}")
+        check(d_mean <= 1, f"vr q{q:g}: mean decode differs by {d_mean}")
+        check(abs(len(mine) - len(jblob)) <= 5e-3 * len(jblob),
+              f"vr q{q:g}: length differs from JAX's")
+        vr_rows[q] = {"bytes": len(mine), "jax_bytes": len(jblob),
+                      "index_flips_per_pass": flips, "flipped": near,
+                      "jax_bitstream_symbol_mismatches": n,
+                      "differ_from_jax": n_enc, "largest": worst_enc,
+                      "mean_max_diff": int(d_mean)}
+    sizes = [vr_rows[q]["bytes"] for q in sorted(vr_rows)]
+    check(sizes == sorted(sizes) and len(set(sizes)) == len(sizes),
+          f"vr: length does not rise with quality {sizes}")
+    vserve = rtv16.decompress(rtv16.compress(crop, quality=1,
+                                             optimize_gamma=True))
+    say("vr", f"BF16_POLICY quality 1 with the gamma search, served: PSNR "
+        f"{psnr_db(vserve, crop):.3f} dB against the crop")
+    check(vserve.shape == crop.shape and psnr_db(vserve, crop) > 20,
+          "vr served decode is not an image of the crop")
+    REPORT["vr"] = {f"{q:g}": r for q, r in vr_rows.items()}
+
+    # ---- 9. encode timing at 768×512, BF16_POLICY ----
+    img768 = np.load(FIXTURES / "image_768x512.npz")["image_u8"]
+    _kernels.reset_launches()
+    blob_s = rt16.compress(img768, optimize_gamma="spatial")
+    torch.cuda.synchronize()
+    enc_launches = dict(_kernels.LAUNCHES)
+    say("main", f"compress(optimize_gamma='spatial') 768x512 (BF16_POLICY): "
+        f"launches {enc_launches}; {len(blob_s)} B")
+    check(enc_launches == {"gn_silu": 6 * 93, "attention": 6 * 60},
+          f"compress launches {enc_launches} != six served decodes")
+    check(rt16.decompress(blob_s).shape == img768.shape, "bad decode shape")
+
+    enc_timing = {}
+    for name, rt, kwargs in (
+            ("flagship", rt16, {}),
+            ("flagship_spatial", rt16, {"optimize_gamma": "spatial"}),
+            ("vr_wide_q1", rtv16, {"quality": 1}),
+            ("vr_wide_q1_spatial", rtv16, {"quality": 1,
+                                           "optimize_gamma": "spatial"})):
+        total = host_median(lambda: rt.compress(img768, **kwargs), runs=5)
+        split = StageSplit(torch, rt)
+        try:
+            runs = []
+            for _ in range(4):
+                split.acc.clear()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                rt.compress(img768, **kwargs)
+                wall = 1e3 * (time.perf_counter() - t)
+                runs.append({**split.acc, "other": wall - sum(
+                    split.acc.values()), "timed_wall": wall})
+        finally:
+            split.restore()
+        stages = {k: statistics.median(r.get(k, 0.0) for r in runs[1:])
+                  for k in runs[-1]}
+        enc_timing[name] = {"compress_ms": total, "split_ms": stages}
+        say("timing", f"768x512 compress {name} BF16_POLICY: {total:.2f} ms "
+            f"(median of 5 after 1 warm-up); split with a synchronize after "
+            f"every stage (ms, median of 3): " + ", ".join(
+                f"{k} {v:.3f}" for k, v in stages.items()))
+    REPORT["encode_timing_ms"] = enc_timing
+    REPORT["compress_launches"] = enc_launches
+
     kernels = []
     for name in ("gn_silu", "attention"):
         p = per[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
+            "launches_compress_spatial": enc_launches[name],
             "max_abs_err": errs[name], "ms": p["ms"],
             "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
             "bound_by": ("bytes" if p["bytes_ms"] >= p["ops_ms"]

@@ -44,9 +44,7 @@ def measure(root: pathlib.Path) -> dict:
     model.load_state_dict(state, strict=True)
     blob = BLOB.read_bytes()
     rt = port.CodecRuntime(cfg, model, device="cuda", policy=port.BF16_POLICY)
-    hdr, z_sym, y_bytes, (ph, pw) = rt._host_z_stage(blob)
-    means, idx = rt._hyper_stage(z_sym)
-    y = torch.from_numpy(rt.y_codec.decode(y_bytes, idx)).to("cuda")
+    hdr, y, means, (ph, pw) = rt._decode_symbols(blob)
 
     def summary(fn) -> dict:
         times = []

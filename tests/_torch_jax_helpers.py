@@ -15,6 +15,7 @@ import pathlib
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import tpucdc.presets as jax_presets
@@ -54,13 +55,18 @@ def to_torch_config(cfg):
         sample=torch_config.SampleConfig(**dataclasses.asdict(cfg.sample)))
 
 
-def tiny_config(steps: int = 4):
+def tiny_config(steps: int = 4, context: str = "hyperprior",
+                num_qualities: int = 1):
     """The tiny preset with the flagship's serving shape: residual refiner,
-    truncated chain, γ blend."""
+    truncated chain, γ blend; any entropy model, any number of gain rows."""
     cfg = jax_presets.tiny()
+    codec = dataclasses.replace(cfg.model.codec, context=context,
+                                context_groups=4,
+                                num_qualities=num_qualities)
     return dataclasses.replace(
         cfg,
-        model=dataclasses.replace(cfg.model, prediction="residual"),
+        model=dataclasses.replace(cfg.model, codec=codec,
+                                  prediction="residual"),
         sample=dataclasses.replace(cfg.sample, steps=steps,
                                    truncate_frac=0.15, blend_gamma=0.5))
 
@@ -128,3 +134,59 @@ def maxdiff(a, b) -> float:
     a = a.detach().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
     b = b.detach().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
     return float(np.max(np.abs(a.astype(np.float64) - b.astype(np.float64))))
+
+
+# ---- coding comparisons shared by the encode and the variable-rate tests ----
+
+CONTEXTS = ("hyperprior", "checkerboard", "channel-ar", "space-channel")
+# Streams in a bitstream: z, then 1, 2, G or 2·G passes over y (G = 4).
+N_STREAMS = {"hyperprior": 2, "checkerboard": 3, "channel-ar": 5,
+             "space-channel": 9}
+MAX_DIFF_FRACTION = 0.005
+
+
+def symbols(trt, blob):
+    """(z symbols, y symbols) the port decodes from ``blob``, as numpy."""
+    _, z_sym, _, _ = trt._host_z_stage(blob)
+    _, y_sym, _, _ = trt._decode_symbols(blob)
+    return z_sym, y_sym.numpy()
+
+
+def encoder_symbols(trt, img, quality=0):
+    """(z, y) symbols the port's encoder codes for ``img``, from the stages
+    ``compress`` runs."""
+    from tpucdc_torch.pipelines.codec_runtime import pad_image, to_model_range
+    x = torch.from_numpy(to_model_range(pad_image(img)[0]))[None]
+    y, z_sym = trt._analysis(x, quality)
+    y_sym, _, _ = trt._y_passes(z_sym.numpy(), y=y)
+    return z_sym.numpy(), y_sym.numpy()
+
+
+def assert_round_trip_exact(trt, img, blob, quality=0):
+    """The symbols decoded from ``blob`` are the symbols the encoder coded."""
+    for got, want in zip(symbols(trt, blob),
+                         encoder_symbols(trt, img, quality)):
+        np.testing.assert_array_equal(got, want)
+
+
+def assert_encoders_agree(a, b):
+    """Two encoders' (z, y) symbols: <= 0.5 % differ, none by more than 1."""
+    differing = sum(int(np.sum(p != q)) for p, q in zip(a, b))
+    total = sum(p.size for p in a)
+    worst = max(int(np.abs(p.astype(np.int64) - q).max())
+                for p, q in zip(a, b))
+    assert worst <= 1, f"a symbol differs by {worst}"
+    assert differing <= MAX_DIFF_FRACTION * total, (
+        f"{differing} of {total} symbols differ")
+
+
+@pytest.fixture
+def one_torch_thread():
+    """Run a test with PyTorch's intra-op pool at one thread. The suite runs
+    in several worker processes; a pool per worker oversubscribes the cores,
+    and the thousands of small ops of a tiny decode then wait on each other
+    (a 6 s test took 115 s among six workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -1,8 +1,11 @@
-"""Carrying the flagship's flax weights into tpucdc_torch.
+"""Carrying the JAX package's flax weights into tpucdc_torch.
 
-``artifacts/flagship_params.npz`` (398 arrays) loads completely into the
-decode slice: unet 330, cond_head 16, g_s 14, h_s 6 and factorized 12. The
-20 encoder arrays (g_a 14, h_a 6) are left for the encode slice.
+``artifacts/flagship_params.npz`` (398 arrays) loads completely: unet 330,
+cond_head 16, g_s 14, g_a 14, h_s 6, h_a 6 and factorized 12.
+``artifacts/vr_wide_params.npz`` (438 arrays) has h_s without its (μ, σ)
+projection (4), the space-channel context (40) and the two gain tables on
+top. Nothing of either file is left unused, and a JAX-initialised tiny model
+of every entropy model with three gain rows maps key for key as well.
 """
 
 import collections
@@ -10,17 +13,14 @@ import collections
 import numpy as np
 import pytest
 
-from tests._torch_jax_helpers import FLAGSHIP_NPZ
+from tests._torch_jax_helpers import (CONTEXTS, FLAGSHIP_NPZ, ROOT,
+                                      flat_params, init_jax, tiny_config,
+                                      to_torch_config)
 from tpucdc_torch import CDCModel, flagship_serving
+from tpucdc_torch.presets import vr_wide_serving
 from tpucdc_torch.utils import load_params_npz, params_from_jax
 
-ENCODER_KEYS = sorted(
-    [f"['params']['g_a']['conv{i}']['{p}']" for i in range(4)
-     for p in ("bias", "kernel")]
-    + [f"['params']['g_a']['gdn{i}']['{p}']" for i in range(3)
-       for p in ("beta_r", "gamma_r")]
-    + [f"['params']['h_a']['conv{i}']['{p}']" for i in range(3)
-       for p in ("bias", "kernel")])
+VR_WIDE_NPZ = ROOT / "artifacts" / "vr_wide_params.npz"
 
 
 @pytest.fixture(scope="module")
@@ -31,11 +31,39 @@ def loaded():
 
 def test_flagship_loads_completely(loaded):
     state, unused, model = loaded
-    assert unused == ENCODER_KEYS and len(unused) == 20
+    assert unused == [] and len(state) == 398
     counts = collections.Counter(k.split(".")[0] for k in state)
-    assert counts == {"unet": 330, "cond_head": 16, "g_s": 14, "h_s": 6,
-                      "factorized": 12}
+    assert counts == {"unet": 330, "cond_head": 16, "g_s": 14, "g_a": 14,
+                      "h_s": 6, "h_a": 6, "factorized": 12}
     model.load_state_dict(state, strict=True)
+
+
+def test_vr_wide_loads_completely():
+    state, unused = load_params_npz(VR_WIDE_NPZ)
+    assert unused == [] and len(state) == 438
+    counts = collections.Counter(k.split(".")[0] for k in state)
+    assert counts == {"unet": 330, "cond_head": 16, "g_s": 14, "g_a": 14,
+                      "h_s": 4, "h_a": 6, "factorized": 12, "context": 40,
+                      "gains": 1, "inv_gains": 1}
+    model = CDCModel(vr_wide_serving().model)
+    model.load_state_dict(state, strict=True)
+    with np.load(VR_WIDE_NPZ) as flax:
+        np.testing.assert_array_equal(model.gains.detach().numpy(),
+                                      flax["['params']['gains']"])
+        k = flax["['params']['context']['anchor_heads_3_0']['kernel']"]
+    np.testing.assert_array_equal(
+        model.context.anchor_heads[3][0].weight.detach().numpy(),
+        k.transpose(3, 2, 0, 1))
+
+
+@pytest.mark.parametrize("context", CONTEXTS)
+def test_jax_initialised_model_of_each_context_loads_strictly(context):
+    cfg = tiny_config(context=context, num_qualities=3)
+    _, params = init_jax(cfg, perturb=0.0)
+    flat = flat_params(params)
+    state, unused = params_from_jax(flat)
+    assert unused == [] and len(state) == len(flat)
+    CDCModel(to_torch_config(cfg).model).load_state_dict(state, strict=True)
 
 
 def test_every_shape_matches_the_flax_layout(loaded):
@@ -44,8 +72,6 @@ def test_every_shape_matches_the_flax_layout(loaded):
     assert set(state) == set(expected)
     with np.load(FLAGSHIP_NPZ) as flax:
         for key in flax.files:
-            if key in ENCODER_KEYS:
-                continue
             arr = flax[key]
             shape = tuple(arr.shape)
             name = next(k for k, v in params_from_jax({key: arr})[0].items())

@@ -1,7 +1,10 @@
-"""Decode-side codec transforms: GDN/IGDN, synthesis g_s and hyper-synthesis h_s.
+"""Codec transforms: GDN/IGDN, analysis g_a, synthesis g_s, h_a and h_s.
 
-Mirrors tpucdc/codec/transforms.py. The analysis transforms g_a and h_a
-belong to the encode slice and are not ported yet. NHWC; parameters f32.
+Mirrors tpucdc/codec/transforms.py: ``g_a`` maps the image to the latent y
+(16× down), ``h_a`` maps |y| to the side information z (a further 4×),
+``h_s`` maps the decoded ẑ to the (μ, σ) of the Gaussian over y (or, for the
+context entropy models, to their feature trunk) and ``g_s`` decodes ŷ to the
+reconstruction x̄. NHWC; parameters f32.
 """
 
 from __future__ import annotations
@@ -42,6 +45,27 @@ class GDN(nn.Module):
         return out.to(x.dtype)
 
 
+class AnalysisTransform(nn.Module):
+    """g_a: image [B,H,W,3] → latent y [B,H/16,W/16,M] (f32)."""
+
+    def __init__(self, config: CodecConfig, policy: Policy = DEFAULT_POLICY):
+        super().__init__()
+        self.policy = policy
+        n = config.hidden_channels
+        for i, cin in enumerate((3, n, n)):
+            setattr(self, f"conv{i}", Conv(cin, n, 5, 2))
+            setattr(self, f"gdn{i}", GDN(n))
+        self.conv3 = Conv(n, config.latent_channels, 5, 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.policy.compute_dtype
+        h = x.to(dt)
+        for i in range(3):
+            h = getattr(self, f"conv{i}")(h, dt)
+            h = getattr(self, f"gdn{i}")(h)
+        return self.conv3(h, dt).to(torch.float32)
+
+
 class SynthesisTransform(nn.Module):
     """g_s: latent ŷ [B,H/16,W/16,M] → reconstruction x̄ [B,H,W,3] (f32)."""
 
@@ -63,8 +87,38 @@ class SynthesisTransform(nn.Module):
         return self.deconv3(h, dt).to(torch.float32)
 
 
+class HyperAnalysis(nn.Module):
+    """h_a: y → z [B,H/64,W/64,Cz] (f32); it sees |y|."""
+
+    def __init__(self, config: CodecConfig, policy: Policy = DEFAULT_POLICY):
+        super().__init__()
+        self.policy = policy
+        n = config.hidden_channels
+        self.conv0 = Conv(config.latent_channels, n, 3)
+        self.conv1 = Conv(n, n, 5, 2)
+        self.conv2 = Conv(n, config.hyper_channels, 5, 2)
+
+    def forward(self, y: torch.Tensor) -> torch.Tensor:
+        dt = self.policy.compute_dtype
+        h = F.silu(self.conv0(y.abs().to(dt), dt))
+        h = F.silu(self.conv1(h, dt))
+        return self.conv2(h, dt).to(torch.float32)
+
+
+def split_mean_scale(raw: torch.Tensor, scale_min: float):
+    """[..., 2C] head output → (μ, σ = max(softplus(·), scale_min)) in f32."""
+    means, scales_raw = raw.to(torch.float32).chunk(2, dim=-1)
+    return means, torch.clamp_min(softplus(scales_raw), scale_min)
+
+
 class HyperSynthesis(nn.Module):
-    """h_s: ẑ → (μ, σ) of the conditional Gaussian over y."""
+    """h_s: ẑ → (μ, σ) of the conditional Gaussian over y.
+
+    With ``features=True`` (the context models' trunk) it returns the
+    pre-projection feature map instead. A checkpoint trained with a context
+    model never ran the projection and holds no weights for it, so ``proj``
+    exists only for the "hyperprior" context.
+    """
 
     def __init__(self, config: CodecConfig, policy: Policy = DEFAULT_POLICY):
         super().__init__()
@@ -73,13 +127,16 @@ class HyperSynthesis(nn.Module):
         n = config.hidden_channels
         self.deconv0 = ConvTranspose(config.hyper_channels, n, 5, 2)
         self.deconv1 = ConvTranspose(n, n, 5, 2)
-        self.proj = Conv(n, 2 * config.latent_channels, 3)
+        self.proj = (Conv(n, 2 * config.latent_channels, 3)
+                     if config.context == "hyperprior" else None)
 
-    def forward(self, z_hat: torch.Tensor):
+    def forward(self, z_hat: torch.Tensor, features: bool = False):
         dt = self.policy.compute_dtype
         h = F.silu(self.deconv0(z_hat.to(dt), dt))
         h = F.silu(self.deconv1(h, dt))
-        h = self.proj(h, dt).to(torch.float32)
-        means, scales_raw = h.chunk(2, dim=-1)
-        scales = torch.clamp_min(softplus(scales_raw), self.scale_min)
-        return means, scales
+        if features:
+            return h
+        if self.proj is None:
+            raise ValueError("h_s has no (μ, σ) projection under a context "
+                             "entropy model; call it with features=True")
+        return split_mean_scale(self.proj(h, dt), self.scale_min)

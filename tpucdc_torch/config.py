@@ -11,6 +11,9 @@ import dataclasses
 from typing import Optional
 
 
+CONTEXTS = ("hyperprior", "checkerboard", "channel-ar", "space-channel")
+
+
 @dataclasses.dataclass(frozen=True)
 class CodecConfig:
     hidden_channels: int = 128     # N: width of g_a / h_a / h_s stacks
@@ -18,10 +21,14 @@ class CodecConfig:
     hyper_channels: int = 128      # channels of z
     # Lower bound on predicted scales (matches GaussianConditional).
     scale_min: float = 0.11
-    # Entropy model over y; the port decodes "hyperprior" only so far.
+    # Entropy model over y: "hyperprior" (μ, σ from ẑ only), "checkerboard"
+    # (two-pass spatial context), "channel-ar" (channel-group conditioning)
+    # or "space-channel" (both).
     context: str = "hyperprior"
+    # Channel groups of "channel-ar" and "space-channel".
     context_groups: int = 4
-    # Variable-rate gain units (1 = single-rate).
+    # Variable-rate gain units: learned per-channel gains on y, one row per
+    # rate point (1 = single-rate). The bitstream header selects the row.
     num_qualities: int = 1
     # Deterministic synthesis transform g_s: ŷ → x̄, the refiner's anchor.
     synthesis: bool = False
@@ -29,6 +36,21 @@ class CodecConfig:
     @property
     def latent_factor(self) -> int:
         return 16                  # four stride-2 stages in g_a
+
+    def validated(self) -> "CodecConfig":
+        if self.context not in CONTEXTS:
+            raise ValueError(f"unknown context {self.context!r}; "
+                             f"expected one of {CONTEXTS}")
+        if (self.context in ("channel-ar", "space-channel")
+                and (self.context_groups < 1
+                     or self.latent_channels % self.context_groups)):
+            raise ValueError("latent_channels must divide into "
+                             f"context_groups: {self.latent_channels} / "
+                             f"{self.context_groups}")
+        if self.num_qualities < 1:
+            raise ValueError(f"num_qualities must be >= 1: "
+                             f"{self.num_qualities}")
+        return self
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,7 +134,8 @@ class ModelConfig:
             self.cond, latent_factor=self.codec.latent_factor,
             # Emit conditioning features at the UNet's post-patch grid.
             output_stride=self.unet.patch_size)
-        return dataclasses.replace(self, unet=unet, cond=cond)
+        return dataclasses.replace(self, codec=self.codec.validated(),
+                                   unet=unet, cond=cond)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,4 +1,4 @@
-"""User-facing pipelines: the serving decode runtime."""
+"""User-facing pipelines: the compress/decompress runtime."""
 
 from tpucdc_torch.pipelines.codec_runtime import CodecRuntime
 

@@ -1,22 +1,42 @@
-"""Serving decode: bitstream → uint8 image, mirroring tpucdc/pipelines/codec_runtime.py.
+"""Compress and decompress, mirroring tpucdc/pipelines/codec_runtime.py.
 
-``CodecRuntime(config, model).decompress(blob)`` runs the flagship's served
-decode for the hyperprior context at a single rate:
+``CodecRuntime(config, model)`` binds a model to the card and the host rANS
+coders once, then serves ``compress()`` / ``decompress()`` calls for the
+four entropy models over y ("hyperprior", "checkerboard", "channel-ar",
+"space-channel"), single-rate or with variable-rate gains.
 
+Encode (``compress``):
+  1. analysis (``_analysis``): x → g_a → (× gain) → y, h_a → z,
+     z symbols = round(z − medians); under the runtime's ``policy``;
+  2. the y passes (``_y_passes``): per pass, (μ, σ) from h_s / the context
+     model → uint8 Gaussian row indexes, symbols = round(y − μ) on the
+     device, fetched as int32 and rANS-coded on the host. 1, 2, G or 2·G
+     passes; a pass's decoded ŷ feeds the next pass's context;
+  3. host: z rANS encode, container write;
+  4. optionally the in-band γ search (``_optimize_gamma``): the served
+     decode of the fresh bitstream at each candidate γ, the PSNR argmax
+     written into the header (scalar, or a per-tile grid).
+
+Decode (``decompress``):
   1. host: container parse + z rANS decode (``_host_z_stage``);
-  2. hyper stage: ẑ = z_sym + medians → h_s → (μ, σ) → uint8 Gaussian row
-     indexes (``_hyper_stage``; the equivalent of JAX's ``_hyper_decode_fn``);
-  3. host: y rANS decode with those indexes;
-  4. device stage (``_device_stage``, JAX's ``_sample_fn``): ŷ = y_sym + μ,
-     the conditioning head, g_s → x̄, the truncated DDIM refine
-     (``steps=0`` is the mean decode x̄), the γ blend, uint8.
+  2. the same ``_y_passes``, reading streams instead of writing them;
+  3. device stage (``_device_stage``, JAX's ``_sample_fn``): ŷ = y_sym + μ,
+     × the inverse gain of the header's quality, the conditioning head,
+     g_s → x̄, the truncated DDIM refine (``steps=0`` is the mean decode
+     x̄), the γ blend, uint8.
 
-The hyper stage always runs under F32_POLICY with TF32 off: one σ that lands
-in a different scale-table row than the encoder's desyncs rANS, and a bf16
-convolution here cannot reproduce the encoder's bf16 rounding. The device
-stage runs under the runtime's ``policy`` (bf16 compute by default, as JAX
-serves). Other contexts, variable rate, classifier-free guidance, DDPM,
-block caching and tiled/batched decode raise NotImplementedError.
+The encoder and the decoder get every row index from the same function
+called on tensors of the same shape: ``_y_passes`` is the only place that
+evaluates h_s and the context model, and it always runs them under
+F32_POLICY with TF32 off (``runtime.pin_numerics``), on the runtime's
+device. One σ that lands in a different scale-table row on the two sides
+desyncs rANS, and a bf16 convolution cannot reproduce another side's bf16
+rounding. g_a, h_a and the device stage run under the runtime's ``policy``
+(bf16 compute by default, as JAX serves).
+
+The analytic rate estimate (``estimate_bpp``, ``probe="estimate"``), batched
+coding, classifier-free guidance, DDPM, block caching and tiled decode
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -27,16 +47,31 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tpucdc_torch.codec.entropy_models import GaussianConditional
+from tpucdc_torch.codec import GaussianConditional, checkerboard_mask
 from tpucdc_torch.config import Config
-from tpucdc_torch.entropy import RansCodec, read_bitstream
+from tpucdc_torch.entropy import (BitstreamHeader, RansCodec, read_bitstream,
+                                  with_header_gamma, with_header_gamma_grid,
+                                  write_bitstream)
 from tpucdc_torch.model import CDCModel
 from tpucdc_torch.ops import make_schedule
 from tpucdc_torch.runtime import (DEFAULT_POLICY, F32_POLICY, Policy,
-                                  disable_tf32, resolve_device, set_policy)
+                                  pin_numerics, resolve_device, set_policy)
 from tpucdc_torch.sampling import ddim_sample, ddim_step_tables
 
 PAD_MULTIPLE = 64  # g_a 16× · h_a 4×
+
+
+def pad_image(img: np.ndarray, multiple: int = PAD_MULTIPLE):
+    """Reflect-pad an HWC image to a multiple; returns (padded, (h, w))."""
+    h, w = img.shape[:2]
+    ph = (-h) % multiple
+    pw = (-w) % multiple
+    padded = np.pad(img, ((0, ph), (0, pw), (0, 0)), mode="reflect")
+    return padded, (h, w)
+
+
+def to_model_range(img_u8: np.ndarray) -> np.ndarray:
+    return img_u8.astype(np.float32) / 127.5 - 1.0
 
 
 def _to_uint8(x: torch.Tensor) -> torch.Tensor:
@@ -47,32 +82,51 @@ def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported yet; see ROADMAP.md")
 
 
+def _mse(a: np.ndarray, ref64: np.ndarray) -> float:
+    return float(np.mean((a.astype(np.float64) - ref64) ** 2))
+
+
 class CodecRuntime:
-    """Bind (config, model) to the card and serve ``decompress()`` calls."""
+    """Bind (config, model) to the card; serve compress/decompress calls."""
+
+    _GAMMA_GRID = (0.0, 0.25, 0.5, 0.75, 1.0)
+    # Spatial dial: one γ grid node per 128-px tile of the padded canvas.
+    GAMMA_TILE = 128
 
     def __init__(self, config: Config, model: CDCModel, device="cuda",
                  policy: Policy = DEFAULT_POLICY):
         self.config = config.validated()
         self.device = resolve_device(device)
         if self.device.type == "cuda":
-            disable_tf32()
+            pin_numerics()
         self.model = model.to(self.device).eval()
+        cf = self.config.model.codec
         set_policy(self.model, policy)
         set_policy(self.model.h_s, F32_POLICY)
+        if cf.context != "hyperprior":
+            set_policy(self.model.context, F32_POLICY)
         self.policy = policy
         self.schedule = make_schedule(self.config.model.schedule.kind,
                                       self.config.model.schedule.num_steps)
         self.gaussian = GaussianConditional()
-        # The served decode codes with the C++ coder only; RansCodec raises
-        # if it does not build.
+        # Coding runs on the C++ coder only; RansCodec raises if it does
+        # not build.
         self.z_codec = RansCodec(model.factorized_tables(), use_native=True)
         self.y_codec = RansCodec(self.gaussian.cdf_tables(), use_native=True)
         self._z_medians = model.z_medians().to(self.device)
-        cf = self.config.model.codec
+        self._context = cf.context
+        self._groups = cf.context_groups
+        self._latent_c = cf.latent_channels
         self._hyper_c = cf.hyper_channels
+        self._nq = cf.num_qualities
         self._synth = cf.synthesis
+        if self._nq > 1:
+            # The trained gain ladder, fetched once: quality_gains
+            # interpolates on the host.
+            self._gain_tables_np = tuple(
+                t.cpu().numpy() for t in self.model.gain_tables())
 
-    # ---- stages ----
+    # ---- small pieces ----
 
     def _t_start(self) -> int | None:
         frac = self.config.sample.truncate_frac
@@ -88,44 +142,219 @@ class CodecRuntime:
             t_start = self.config.model.schedule.num_steps - 1
         return ddim_step_tables(self.schedule, steps, eta, t_start)
 
+    def _z_rows(self, shape) -> np.ndarray:
+        return np.broadcast_to(np.arange(self._hyper_c, dtype=np.int32), shape)
+
+    @staticmethod
+    def _fetch(t: torch.Tensor) -> np.ndarray:
+        """Device → host; every transfer of the coding path goes through here."""
+        return t.cpu().numpy()
+
+    def quality_gains(self, quality: float):
+        """Continuous quality ∈ [0, num_qualities-1] → (gain, inv_gain) [C].
+
+        Integral qualities return the trained ladder rows bitwise;
+        fractional q interpolates the adjacent rows in the log domain (rate
+        is about log-linear in the gain). Magnitudes are floored at 1e-9
+        for the log, and the lower row's sign is carried onto the
+        interpolated magnitude.
+        """
+        if self._nq < 2:
+            raise ValueError("continuous quality needs num_qualities > 1")
+        q = float(np.clip(quality, 0.0, self._nq - 1))
+        gains, inv_gains = self._gain_tables_np
+        lo = int(np.floor(q))
+        f = q - lo
+        if f == 0.0:
+            return (gains[lo].astype(np.float32),
+                    inv_gains[lo].astype(np.float32))
+
+        def interp(rows):
+            lg = np.log(np.maximum(np.abs(rows[lo]), 1e-9))
+            hg = np.log(np.maximum(np.abs(rows[lo + 1]), 1e-9))
+            mag = np.exp((1.0 - f) * lg + f * hg)
+            return np.copysign(mag, rows[lo]).astype(np.float32)
+        return interp(gains), interp(inv_gains)
+
+    def _make_header(self, h: int, w: int, quality) -> BitstreamHeader:
+        """Header for ``quality`` (ladder index or continuous float).
+
+        A fractional quality sets the v4 ``quality_f`` field and the nearest
+        integer ``quality_id``: floor(q+0.5), since banker's rounding would
+        bucket the .5 midpoints inconsistently.
+        """
+        qf = float(quality)
+        fractional = qf != int(qf)
+        return BitstreamHeader(
+            height=h, width=w, quality_id=int(np.floor(qf + 0.5)),
+            steps=self.config.sample.steps,
+            guidance=self.config.sample.guidance,
+            quality_f=qf if fractional else float("nan"))
+
+    # ---- encoder-only stage ----
+
+    @torch.inference_mode()
+    def _analysis(self, x: torch.Tensor, quality=0):
+        """x → (y, z symbols), both on the device, in the gained domain.
+
+        With gains the gain scales y before h_a, so the whole entropy path
+        works in the gained domain; decode applies the inverse gain only at
+        the conditioning boundary (``_device_stage``).
+        """
+        gain = None
+        if self._nq > 1:
+            gain = torch.from_numpy(self.quality_gains(quality)[0]).to(
+                self.device)
+        y, z = self.model.encode(x, gain)
+        return y, torch.round(z - self._z_medians).to(torch.int32)
+
+    # ---- stages shared by both sides ----
+
     def _host_z_stage(self, blob: bytes):
-        """Host-only part of decode: container parse + z rANS decode."""
+        """Host-only part of decode: container parse + z rANS decode.
+
+        Returns (header, z symbols, the y streams, padded (h, w)).
+        """
         hdr, streams = read_bitstream(blob)
-        if len(streams) != 2:
-            raise _not_ported(f"a {len(streams)}-stream (context) bitstream")
-        z_bytes, y_bytes = streams
+        want = 1 + {"hyperprior": 1, "checkerboard": 2,
+                    "channel-ar": self._groups,
+                    "space-channel": 2 * self._groups}[self._context]
+        if len(streams) != want:
+            raise ValueError(
+                f"a {self._context} bitstream holds {want} streams, "
+                f"this one {len(streams)}")
         ph = hdr.height + ((-hdr.height) % PAD_MULTIPLE)
         pw = hdr.width + ((-hdr.width) % PAD_MULTIPLE)
         z_shape = (1, ph // PAD_MULTIPLE, pw // PAD_MULTIPLE, self._hyper_c)
-        z_rows = np.broadcast_to(
-            np.arange(self._hyper_c, dtype=np.int32), z_shape)
-        z_sym = self.z_codec.decode(z_bytes, z_rows)
-        return hdr, z_sym, y_bytes, (ph, pw)
+        z_sym = self.z_codec.decode(streams[0], self._z_rows(z_shape))
+        return hdr, z_sym, streams[1:], (ph, pw)
+
+    def _z_hat(self, z_sym: np.ndarray) -> torch.Tensor:
+        z = torch.from_numpy(np.ascontiguousarray(z_sym)).to(self.device)
+        return z.to(torch.float32) + self._z_medians
 
     @torch.inference_mode()
+    def _params(self, fn, *args):
+        """One entropy-parameter pass: fn(*args) = (μ, σ) → (μ, uint8 row
+        indexes), both on the device."""
+        means, scales = fn(*args)
+        return means, self.gaussian.build_indexes(scales).to(torch.uint8)
+
     def _hyper_stage(self, z_sym: np.ndarray):
         """z symbols → (μ on the device, uint8 row indexes on the host)."""
-        z = torch.from_numpy(np.ascontiguousarray(z_sym)).to(self.device)
-        z_hat = z.to(torch.float32) + self._z_medians
-        means, scales = self.model.hyper_decode(z_hat)
-        idx = self.gaussian.build_indexes(scales).to(torch.uint8)
-        return means, idx.cpu().numpy()
+        means, idx = self._params(self.model.hyper_decode,
+                                  self._z_hat(z_sym))
+        return means, self._fetch(idx)
+
+    @torch.inference_mode()
+    def _y_passes(self, z_sym: np.ndarray, y: Optional[torch.Tensor] = None,
+                  streams=None):
+        """The Gaussian-coded passes over y, for both sides.
+
+        Encoder (``y`` given): each pass rounds y against its μ and codes
+        the symbols; returns the streams written. Decoder (``streams``
+        given): each pass decodes its stream. Either way every pass's
+        (μ, σ) come from the same calls on the same shapes, so both sides
+        see the same row indexes. A masked pass codes ``sym[:, mask]``:
+        position-major, channel-minor.
+
+        Returns (y symbols int32, μ f32, streams), tensors on the device.
+        """
+        encoding = y is not None
+        src = iter(() if encoding else streams)
+        out = []
+        model, dev = self.model, self.device
+        hy, wy = 4 * z_sym.shape[1], 4 * z_sym.shape[2]
+
+        def code(y_part, means, idx_np, mask=None):
+            """One pass's symbols, [1, hy, wy, c] (the decoder's are zero
+            off ``mask``; the encoder's are masked by the caller)."""
+            if encoding:
+                sym = torch.round(y_part - means).to(torch.int32)
+                out.append(self.y_codec.encode(
+                    self._fetch(sym if mask is None else sym[:, mask]),
+                    idx_np))
+                return sym
+            dec = torch.from_numpy(
+                self.y_codec.decode(next(src), idx_np)).to(dev)
+            if mask is None:
+                return dec.reshape(means.shape)
+            sym = torch.zeros(means.shape, dtype=torch.int32, device=dev)
+            sym[:, mask] = dec
+            return sym
+
+        if self._context == "hyperprior":
+            means, idx = self._hyper_stage(z_sym)
+            return code(y, means, idx), means, out
+
+        feats = model.hyper_features(self._z_hat(z_sym))
+        am = torch.from_numpy(
+            checkerboard_mask(hy, wy, anchor=True)[..., 0] > 0).to(dev)
+        nam = ~am
+        am4 = am[None, :, :, None]
+        amf, ami = am4.to(torch.float32), am4.to(torch.int32)
+
+        def parity_passes(y_part, anchor_fn, nonanchor_fn):
+            """Anchors, then non-anchors given the decoded anchors."""
+            m_a, idx_a = self._params(anchor_fn)
+            sym_a = code(y_part, m_a, self._fetch(idx_a[:, am]), am)
+            # int32 + f32 in f32: the sum of a small integer and an f32
+            # rounds as the f64 sum cast back to f32 does.
+            y_anchor = (sym_a.to(torch.float32) + m_a) * amf
+            m_na, idx_na = self._params(nonanchor_fn, y_anchor)
+            sym_na = code(y_part, m_na, self._fetch(idx_na[:, nam]), nam)
+            return (sym_a * ami + sym_na * (1 - ami),
+                    m_a * amf + m_na * (1 - amf))
+
+        if self._context == "checkerboard":
+            y_sym, means = parity_passes(
+                y, lambda: model.ctx_anchor_params(feats),
+                lambda ya: model.ctx_nonanchor_params(feats, ya))
+            return y_sym, means, out
+
+        mg = self._latent_c // self._groups
+        sym_parts, mean_parts, dec_parts = [], [], []
+        for g in range(self._groups):
+            # Group 0's context is zero channels wide.
+            y_prev = (torch.cat(dec_parts, -1) if dec_parts
+                      else feats.new_zeros((1, hy, wy, 0)))
+            y_g = y[..., g * mg:(g + 1) * mg] if encoding else None
+            if self._context == "channel-ar":
+                mean_g, idx_g = self._params(model.ctx_group_params, g,
+                                             feats, y_prev)
+                sym_g = code(y_g, mean_g, self._fetch(idx_g))
+            else:
+                sym_g, mean_g = parity_passes(
+                    y_g, lambda: model.sc_anchor_params(g, feats, y_prev),
+                    lambda ya: model.sc_nonanchor_params(g, feats, y_prev,
+                                                         ya))
+            sym_parts.append(sym_g)
+            mean_parts.append(mean_g)
+            dec_parts.append(sym_g.to(torch.float32) + mean_g)
+        return torch.cat(sym_parts, -1), torch.cat(mean_parts, -1), out
 
     def _decode_symbols(self, blob: bytes):
         """Bitstream → (header, ŷ symbols [device], μ [device], padded hw)."""
-        hdr, z_sym, y_bytes, (ph, pw) = self._host_z_stage(blob)
-        means, indexes = self._hyper_stage(z_sym)
-        y_sym = self.y_codec.decode(y_bytes, indexes)
-        return hdr, torch.from_numpy(y_sym).to(self.device), means, (ph, pw)
+        hdr, z_sym, y_streams, (ph, pw) = self._host_z_stage(blob)
+        y_sym, means, _ = self._y_passes(z_sym, streams=y_streams)
+        return hdr, y_sym, means, (ph, pw)
 
     @torch.inference_mode()
     def _device_stage(self, y_sym: torch.Tensor, means: torch.Tensor,
                       steps: int, eta: float, gamma, ph: int, pw: int,
                       noise: Optional[torch.Tensor] = None,
-                      generator: Optional[torch.Generator] = None
+                      generator: Optional[torch.Generator] = None,
+                      inv_gain: Optional[np.ndarray] = None
                       ) -> torch.Tensor:
-        """(ŷ symbols, μ) → uint8 [1, ph, pw, 3] on the device."""
+        """(ŷ symbols, μ) → uint8 [1, ph, pw, 3] on the device.
+
+        ``inv_gain`` ([C], variable-rate models) takes ŷ from the gained
+        coding domain to the conditioning domain.
+        """
         y_hat = y_sym.to(torch.float32) + means
+        if inv_gain is not None:
+            y_hat = self.model.inv_gain(
+                y_hat, torch.from_numpy(inv_gain).to(self.device))
         cond_f, cond_t = self.model.cond_signal(y_hat)
         x_bar = None
         if self._synth:
@@ -159,6 +388,191 @@ class CodecRuntime:
 
     # ---- public API ----
 
+    @torch.inference_mode()
+    def compress(self, img_u8: np.ndarray, quality_id: int = 0,
+                 optimize_gamma=False, quality: float | None = None,
+                 noise: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None) -> bytes:
+        """HWC uint8 image → bitstream.
+
+        ``quality``: continuous variable-rate quality ∈ [0,
+        num_qualities-1] (overrides ``quality_id``). Fractional values
+        interpolate the trained gain ladder (``quality_gains``) and are
+        carried in the v4 header; integral values give the bitstream of
+        ``quality_id=int(quality)``.
+
+        ``optimize_gamma``: encode-time search of the per-image serving
+        dial. True sweeps γ ∈ {0, 0.25, 0.5, 0.75, 1}, a sequence sweeps
+        its values, ``"spatial"`` also fits a per-tile γ grid. The encoder
+        decodes the fresh bitstream at each candidate under the runtime's
+        sample config, scores it against the original, and writes the
+        winner into the header. Needs ``codec.synthesis``. ``noise`` /
+        ``generator`` give the candidates' initial ε; by default it is what
+        ``decompress`` draws by default, so a later served decode on the
+        same kind of device reproduces the scored reconstruction.
+        """
+        if quality is not None:
+            if self._nq < 2:
+                raise ValueError("continuous quality needs a variable-rate "
+                                 "model (codec.num_qualities > 1)")
+            q = float(np.clip(quality, 0.0, self._nq - 1))
+            q = int(q) if q == int(q) else q
+        else:
+            q = int(quality_id)
+        padded, (h, w) = pad_image(img_u8)
+        x = torch.from_numpy(to_model_range(padded))[None].to(self.device)
+        y, z_sym = self._analysis(x, q)
+        z_sym = self._fetch(z_sym)
+        _, _, y_streams = self._y_passes(z_sym, y=y)
+        z_bytes = self.z_codec.encode(z_sym, self._z_rows(z_sym.shape))
+        blob = write_bitstream(self._make_header(h, w, q),
+                               [z_bytes] + y_streams)
+        if optimize_gamma:
+            blob = self._optimize_gamma(blob, img_u8, optimize_gamma,
+                                        noise, generator)
+        return blob
+
+    def compress_to_bpp(self, img_u8: np.ndarray, target_bpp: float, *,
+                        tol: float = 0.03, max_iters: int = 8,
+                        optimize_gamma=False, probe: str = "encode"
+                        ) -> tuple[bytes, float, float]:
+        """Rate control: encode to an actual bits-per-pixel target
+        (container bytes / original pixels) by bisecting the continuous
+        quality dial. Returns (bitstream, quality, bpp).
+
+        The endpoints are measured rather than assumed, so a reversed or
+        flat gain ladder degrades to the closest endpoint; a target outside
+        the reachable span clamps to the nearest endpoint (the returned bpp
+        says what was achieved). Every probe is a full encode.
+        """
+        if self._nq < 2:
+            raise ValueError("compress_to_bpp needs a variable-rate model "
+                             "(codec.num_qualities > 1)")
+        if probe == "estimate":
+            raise _not_ported("compress_to_bpp(probe='estimate')")
+        if probe != "encode":
+            raise ValueError(f"unknown probe mode {probe!r}")
+        npix = img_u8.shape[0] * img_u8.shape[1]
+
+        def encode_at(q):
+            blob = self.compress(img_u8, quality=q)
+            return blob, q, len(blob) * 8.0 / npix
+
+        lo, hi = encode_at(0.0), encode_at(float(self._nq - 1))
+        if hi[2] < lo[2]:       # descending ladder: swap so bpp rises with q
+            lo, hi = hi, lo
+        if target_bpp <= lo[2]:
+            best = lo
+        elif target_bpp >= hi[2]:
+            best = hi
+        else:
+            best = min((lo, hi), key=lambda t: abs(t[2] - target_bpp))
+            lo_q, hi_q = lo[1], hi[1]
+            for _ in range(max_iters):
+                if abs(best[2] - target_bpp) / target_bpp <= tol:
+                    break
+                mid = encode_at(0.5 * (lo_q + hi_q))
+                if abs(mid[2] - target_bpp) < abs(best[2] - target_bpp):
+                    best = mid
+                if mid[2] < target_bpp:
+                    lo_q = mid[1]
+                else:
+                    hi_q = mid[1]
+        blob, q, bpp = best
+        if optimize_gamma:
+            blob = self._optimize_gamma(blob, img_u8, optimize_gamma)
+        return blob, q, bpp
+
+    def estimate_bpp(self, img_u8: np.ndarray, quality: float = 0) -> float:
+        raise _not_ported("estimate_bpp (the analytic rate estimate)")
+
+    def compress_many(self, images, **kwargs):
+        raise _not_ported("compress_many")
+
+    def decompress_many(self, blobs, **kwargs):
+        raise _not_ported("decompress_many")
+
+    def _optimize_gamma(self, blob: bytes, img_u8: np.ndarray, candidates,
+                        noise: Optional[torch.Tensor] = None,
+                        generator: Optional[torch.Generator] = None) -> bytes:
+        """Pick the serving γ by decoding ``blob`` at each candidate and
+        rewrite the header with the PSNR argmax (include γ=0, the mean
+        decode, and the search can only match or beat it).
+
+        Every candidate is scored with the same initial ε: ``noise``, or one
+        draw from ``generator``, or the draw ``decompress`` makes by default.
+
+        ``candidates="spatial"``: also fit a per-tile γ grid in closed form
+        (``_fit_gamma_grid``) from the γ=0 and γ=1 candidates, verify it by
+        decoding the v5 candidate, and keep the grid only if it beats the
+        scalar pick.
+        """
+        if not self._synth:
+            raise ValueError("optimize_gamma needs codec.synthesis "
+                             "(the blend dial is x̄-anchored)")
+        spatial = isinstance(candidates, str) and candidates == "spatial"
+        grid = (self._GAMMA_GRID if (candidates is True or spatial)
+                else tuple(float(g) for g in candidates))
+        if not grid:
+            raise ValueError("optimize_gamma: empty candidate grid")
+        if noise is None:
+            if generator is None:
+                generator = torch.Generator(self.device).manual_seed(0)
+            ph, pw = pad_image(img_u8)[0].shape[:2]
+            noise = torch.randn((1, ph, pw, 3), generator=generator,
+                                dtype=torch.float32, device=self.device)
+        ref = img_u8.astype(np.float64)
+        best_g, best_err = None, np.inf
+        recs = {}
+        for g in grid:
+            rec = self.decompress(blob, noise=noise, gamma=g)
+            if spatial and g in (0.0, 1.0):
+                recs[g] = rec
+            err = _mse(rec, ref)
+            if err < best_err:
+                best_g, best_err = g, err
+        if spatial:
+            grid_u8 = self._fit_gamma_grid(ref, recs[0.0], recs[1.0])
+            cand = with_header_gamma_grid(blob, grid_u8, best_g)
+            if _mse(self.decompress(cand, noise=noise), ref) < best_err:
+                return cand
+        return with_header_gamma(blob, best_g)
+
+    def _fit_gamma_grid(self, ref, mean_u8, refined_u8) -> np.ndarray:
+        """Closed-form per-tile γ fit.
+
+        The blend x̂(γ) = x̄ + γ·d is linear in γ, so a tile's MSE argmin is
+        γ* = Σ d·r / Σ d·d (d = x_refined − x̄, r = x_orig − x̄), clamped to
+        [0, 1]. Tiles span the padded canvas (decode upsamples the grid to
+        the padded resolution), pixels go to the nearest grid node under
+        half-pixel-center geometry, and nodes with no image pixels or a
+        degenerate denominator fall back to γ=0.
+        """
+        h, w = ref.shape[:2]
+        ph = h + ((-h) % PAD_MULTIPLE)
+        pw = w + ((-w) % PAD_MULTIPLE)
+        t = self.GAMMA_TILE
+        gh, gw = -(-ph // t), -(-pw // t)
+        d = refined_u8.astype(np.float64) - mean_u8.astype(np.float64)
+        r = ref - mean_u8.astype(np.float64)
+        iy = np.clip(np.round((np.arange(h) + 0.5) * gh / ph - 0.5),
+                     0, gh - 1).astype(np.int64)
+        ix = np.clip(np.round((np.arange(w) + 0.5) * gw / pw - 0.5),
+                     0, gw - 1).astype(np.int64)
+        node = (iy[:, None] * gw + ix[None, :]).ravel()
+        num = np.bincount(node, weights=(d * r).sum(-1).ravel(),
+                          minlength=gh * gw)
+        den = np.bincount(node, weights=(d * d).sum(-1).ravel(),
+                          minlength=gh * gw)
+        gam = np.where(den > 1e-6, num / np.maximum(den, 1e-6), 0.0)
+        gam = np.clip(gam, 0.0, 1.0).reshape(gh, gw)
+        return np.round(gam * 255.0).astype(np.uint8)
+
+    def decode_latent(self, blob: bytes):
+        """Bitstream → (ŷ in the coding domain [device], header)."""
+        hdr, y_sym, means, _ = self._decode_symbols(blob)
+        return y_sym.to(torch.float32) + means, hdr
+
     def decompress(self, blob: bytes, noise: Optional[torch.Tensor] = None,
                    generator: Optional[torch.Generator] = None,
                    steps: int | None = None, eta: float | None = None,
@@ -169,7 +583,9 @@ class CodecRuntime:
         drawn from ``generator`` (seed 0 on the runtime's device when both are
         None). ``gamma`` resolves as: the explicit argument (scalar or a
         [gh, gw] grid), then the v5 header grid, then the header scalar, then
-        ``SampleConfig.blend_gamma``.
+        ``SampleConfig.blend_gamma``. A variable-rate model applies the
+        inverse gain of the header's quality: the v4 ``quality_f``
+        (interpolated) when set, else the ``quality_id`` row.
         """
         sample = self.config.sample
         if sample.sampler != "ddim":
@@ -190,6 +606,11 @@ class CodecRuntime:
             else:
                 gamma = (hdr.gamma_or_none if hdr.gamma_or_none is not None
                          else sample.blend_gamma)
+        inv_gain = None
+        if self._nq > 1:
+            qf = hdr.quality_f_or_none
+            _, inv_gain = self.quality_gains(
+                hdr.quality_id if qf is None else qf)
         img = self._device_stage(y_sym, means, steps, eta, gamma, ph, pw,
-                                 noise, generator)
-        return img.cpu().numpy()[0][:hdr.height, :hdr.width]
+                                 noise, generator, inv_gain)
+        return self._fetch(img)[0][:hdr.height, :hdr.width]

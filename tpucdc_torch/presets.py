@@ -1,6 +1,8 @@
-"""Config presets: the CPU-test ``tiny`` model and the served flagship."""
+"""Config presets: the CPU-test ``tiny`` model and the two trained models."""
 
 from __future__ import annotations
+
+import dataclasses
 
 from tpucdc_torch.config import (CodecConfig, ConditioningConfig, Config,
                                  ModelConfig, SampleConfig, ScheduleConfig,
@@ -47,3 +49,18 @@ def flagship_serving() -> Config:
         ),
         sample=SampleConfig(steps=5, truncate_frac=0.15, blend_gamma=0.5),
     ).validated()
+
+
+def vr_wide_serving() -> Config:
+    """The variable-rate model of ``artifacts/vr.json``.
+
+    ``scripts/train_vr_sweep.py::vr_sc_config(wide=True,
+    prediction="residual")``: the flagship's widths with three gain rows
+    (λ = 16, 128, 1024) and the space-channel context in four groups. The
+    sample block is the spec's ``serving`` dial, the flagship's.
+    """
+    cfg = flagship_serving()
+    codec = dataclasses.replace(cfg.model.codec, context="space-channel",
+                                context_groups=4, num_qualities=3)
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, codec=codec)).validated()

@@ -35,13 +35,33 @@ def set_policy(module: torch.nn.Module, policy: Policy) -> None:
             m.policy = policy
 
 
-def disable_tf32() -> None:
-    """Make f32 convolutions and matmuls on the card run in full f32.
+def pin_numerics() -> None:
+    """Pin what the coder's row indexes rely on; process-wide PyTorch flags.
 
-    cuDNN runs f32 convolutions in TF32 by default, which keeps only about
-    three decimal digits; the F32_POLICY stages (the hyper stage's σ feeds
-    the rANS row indexes) need true f32 to agree with the JAX reference.
-    bf16 compute is unaffected by these flags.
+    The encoder and the decoder each compute h_s and every context pass,
+    and both must land every σ in the same scale-table row, or rANS
+    desyncs. They call the same functions on tensors of the same shape;
+    what remains is the library's choice of algorithm, pinned here, in the
+    one place the runtime calls before it touches the card:
+
+      * TF32 off for convolutions and matmuls: cuDNN and cuBLAS otherwise
+        run f32 in TF32, which keeps about three decimal digits; the
+        F32_POLICY stages need true f32 to agree with the JAX reference
+        and with the CPU.
+      * ``cudnn.benchmark`` off: with it on, cuDNN times candidate
+        algorithms at the first call of each shape and keeps the winner,
+        so two processes (or an encoder and a later decoder) can sum in
+        different orders for the same shape. Off, the choice is a
+        heuristic of the shape alone.
+      * ``cudnn.deterministic`` on: a transposed convolution (h_s) is a
+        backward-data pass, for which cuDNN has algorithms that accumulate
+        with atomics and give run-to-run different last bits.
+
+    bf16 compute is unaffected by the TF32 flags. One GPU model and one
+    library version are assumed on both sides, as for any float-derived
+    entropy parameters.
     """
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True

@@ -5,17 +5,19 @@ keyed by its ``jax.tree_util.keystr`` path, e.g.
 ``['params']['unet']['down_res_0_0']['conv1']['kernel']``. The port's modules
 carry the flax names, so the mapping is mechanical:
 
-  * flax list members ``down_res_0_0`` become ``down_res.0.0`` (ModuleLists);
+  * flax list members ``down_res_0_0`` become ``down_res.0.0`` (ModuleLists),
+    as do the context models' ``heads_G_I``, ``anchor_heads_G_I``,
+    ``ctx_convs_G`` and ``fuse_G_I``;
   * a resampler's auto-named ``Conv_0`` is the port's ``conv``;
   * ``kernel`` becomes ``weight``: a conv's HWIO is transposed to OIHW, a
     Dense (in, out) to (out, in), and a ConvTranspose kernel is flipped in
     both spatial axes and laid out [in, out, kh, kw];
-  * GN ``scale``/``bias``, GDN ``beta_r``/``gamma_r`` and the factorized-prior
-    arrays are copied as they are.
+  * GN ``scale``/``bias``, GDN ``beta_r``/``gamma_r``, the factorized-prior
+    arrays and the variable-rate ``gains``/``inv_gains`` are copied as they
+    are.
 
-The encoder's keys (g_a, h_a) are returned as unused until the encode slice
-ports them; ``CDCModel.load_state_dict(strict=True)`` then raises on any key
-the decode modules need and do not find.
+Every array of a checkpoint maps onto the model, so
+``CDCModel.load_state_dict(strict=True)`` raises on a key either side lacks.
 """
 
 from __future__ import annotations
@@ -26,10 +28,10 @@ import re
 import numpy as np
 import torch
 
-ENCODER_MODULES = ("g_a", "h_a")
 _LIST_MEMBER = re.compile(
     r"^(down_res|down_attn|down_xattn|up_res|up_attn|up_xattn|"
-    r"downsamplers|upsamplers)_(\d+(?:_\d+)?)$")
+    r"downsamplers|upsamplers|heads|anchor_heads|ctx_convs|fuse)"
+    r"_(\d+(?:_\d+)?)$")
 _TRANSPOSED = re.compile(r"^(g_s|h_s)\.deconv\d+$")
 
 
@@ -55,13 +57,14 @@ def _torch_module_path(parts: list[str]) -> str:
 
 
 def params_from_jax(flat: dict) -> tuple[dict, list[str]]:
-    """Flat flax params → (torch state_dict, unused encoder keys)."""
+    """Flat flax params → (torch state_dict, keys that map onto nothing).
+
+    The second list is empty for every checkpoint of the JAX package; it is
+    kept so that a caller can assert that nothing was dropped.
+    """
     state, unused = {}, []
     for key in sorted(flat):
         parts = _path(key)
-        if parts[0] in ENCODER_MODULES:
-            unused.append(key)
-            continue
         arr = np.asarray(flat[key], np.float32)
         module = _torch_module_path(parts[:-1])
         leaf = parts[-1]
