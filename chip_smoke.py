@@ -65,8 +65,45 @@ in order; any failure raises, exits non-zero and prints no result line:
                 just before: six served decodes, 558 GN+SiLU and 360
                 attention launches.
 
-The last three lines are the card's name and power limit, the ``kernels``
-JSON line, and ``{"ok": true, "device": {...}}``. Details also go to
+ 10. modes    — the trained flagship on the 384×512 fixture under F32_POLICY
+                with JAX's ε, against the JAX arrays of
+                fixtures/flagship_modes.npz: ``decompress(guidance=2.0)`` and
+                block-cached DDIM (``sample.cache_period=2``), each max
+                |diff| <= 2 with >= 99.9 % within 1. Launch counts, derived
+                from the UNet's config: guidance 93 GN+SiLU and 60 attention
+                (batch 2, not twice the launches); block-cached 79 and 36
+                (3 full steps, 2 on levels 0-1, which hold no attention).
+                Then the block-cached decode's time beside the plain one's.
+ 11. tiled    — fixtures/flagship_768x512.tpucdc at tile 256, halo 32 (6
+                tiles of 320×320): ``decompress_tiled(steps=0)`` within 1 LSB
+                of JAX's; the refined tiled decode within 1 LSB of the same
+                tiles decoded one by one with the same ε, in one set of 93
+                and 60 launches. Then a 2048×1536 image made from a numpy
+                seed, compressed on the card: 48 tiles in one batch against
+                ``decompress(steps=0)``: both times, peak device memory,
+                PSNR of the tiled mean decode against the untiled one.
+ 12. batch    — ``compress_many`` / ``decompress_many`` of 4 images (the
+                flagship, two sizes) and of 3 (``vr_wide``, 8 context
+                passes an image): bytes and pixels equal the one-by-one calls; both
+                wall times.
+ 13. large    — ``presets.flagship()`` at full width, 768×512, BF16_POLICY:
+                the trained codec with a UNet and a conditioning head drawn
+                from a seed. One DDIM-100 decode (2303 GN+SiLU and 2200
+                attention launches, derived), one DDPM decode over all 1000
+                steps, and guidance 2.0 in the batch-doubled form against
+                the two-call form: one net call (bf16 2e-2·max|reference|,
+                f32 1e-4), a two-step decode from t_start = 0.15·(T-1) in
+                both types (within twice what the net call's error gives
+                through the first DDIM update, plus 2 LSB) and a 10-step
+                decode (f32: PSNR >= 40 dB;
+                bf16: printed, the random weights amplify its rounding); all
+                repeatable under the same generator. Time per step.
+
+The kernel checks of phase 3 also cover every shape these paths give the two
+kernels (batch 2, 6 and 48; head widths 48 and 64; the 384×512 fixture plain
+and guided; the variable-rate model), found by one step of each. The last
+three lines are the card's name and power limit, the ``kernels`` JSON line,
+and ``{"ok": true, "device": {...}}``. Details also go to
 chiprun_out/chip_smoke.json.
 
 Usage: python3 chip_smoke.py
@@ -76,6 +113,7 @@ from __future__ import annotations
 
 import collections
 import copy
+import dataclasses
 import importlib
 import json
 import pathlib
@@ -174,6 +212,61 @@ class StageSplit:
             delattr(owner, attr)
 
 
+def unet_launches(ucfg, levels=None) -> dict:
+    """GN+SiLU and attention launches of one UNet forward, from its config:
+    all levels and the mid block, or only ``levels`` (the shallow segment of a
+    block-cached step). A ResBlock launches GN+SiLU once (norm1), the output
+    norm once; an attention block launches attention once, and each has a
+    cross-attention twin when the model has conditioning tokens."""
+    whole = levels is None
+    levels = range(len(ucfg.channel_mult)) if whole else levels
+    per_level = 2 * ucfg.num_res_blocks + 1          # down blocks + up blocks
+    res = per_level * len(levels) + (2 if whole else 0)
+    attn = (per_level * sum(li in ucfg.attn_levels for li in levels)
+            + (1 if whole else 0))
+    return {"gn_silu": res + 1,
+            "attention": attn * (2 if ucfg.cond_token_dim else 1)}
+
+
+def decode_launches(cfg, steps: int, cache_period: int = 1) -> dict:
+    """Launches of one device stage: the conditioning head's GN+SiLUs, then
+    ``steps`` UNet forwards, of which a block-cached chain runs only the
+    shallow levels where ``k % cache_period != 0``."""
+    ucfg, cond = cfg.model.unet, cfg.model.cond
+    head = 1 + (cond.latent_factor // cond.output_stride).bit_length() - 1
+    full = unet_launches(ucfg)
+    shallow = unet_launches(ucfg, range(ucfg.split_level))
+    n_full = len(range(0, steps, cache_period))
+    return {k: (head if k == "gn_silu" else 0) + n_full * full[k]
+            + (steps - n_full) * shallow[k] for k in full}
+
+
+def lsb_gap(got, want):
+    """(largest |difference|, share of pixels within 1) of two uint8 images."""
+    import numpy as np
+    d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    return int(d.max()), float(np.mean(d <= 1))
+
+
+def seeded_image(h: int, w: int, seed: int):
+    """An HWC uint8 image from a numpy seed: smooth colour fields, a few hard
+    edges and some grain, so that a codec has structure to code."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.zeros((h, w, 3), np.float32)
+    for _ in range(12):
+        fy, fx = rng.uniform(0.5, 12.0, 2) * 2 * np.pi / np.array([h, w])
+        wave = np.sin(fy * yy + fx * xx + rng.uniform(0, 2 * np.pi))
+        img += wave[..., None] * rng.uniform(-30, 30, 3)
+    for _ in range(40):
+        y0, x0 = rng.integers(0, h), rng.integers(0, w)
+        dy, dx = rng.integers(16, h // 4), rng.integers(16, w // 4)
+        img[y0:y0 + dy, x0:x0 + dx] += rng.uniform(-60, 60, 3)
+    img += 128 + rng.normal(0, 3, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -190,6 +283,7 @@ def main() -> None:
     attn_mod = importlib.import_module("tpucdc_torch.ops.attention")
     groupnorm = importlib.import_module("tpucdc_torch.ops.groupnorm")
     from tpucdc_torch.runtime import set_policy
+    from tpucdc_torch.utils import draw_weights
 
     dev = torch.device("cuda")
     card = card_line()
@@ -235,31 +329,95 @@ def main() -> None:
         f"differing entries {table_gap}")
     check(not any(table_gap.values()), f"coder tables differ {table_gap}")
     blob768 = (FIXTURES / "flagship_768x512.tpucdc").read_bytes()
+    blob = fx["blob"].tobytes()
+    crop = fx["crop_u8"]
+    img768 = np.load(FIXTURES / "image_768x512.npz")["image_u8"]
 
-    # Shape discovery: the shapes the main path gives each kernel.
-    seen = {"gn_silu": collections.Counter(),
-            "attention": collections.Counter()}
+    # The variable-rate, space-channel checkpoint.
+    vcfg = port.vr_wide_serving()
+    vmodel = port.CDCModel(vcfg.model)
+    vstate, vunused = port.load_params_npz(VR_WEIGHTS)
+    check(len(vstate) == 438 and not vunused, "vr_wide: arrays left unused")
+    vmodel.load_state_dict(vstate, strict=True)
+    vfx = np.load(FIXTURES / "vr_wide_384x512.npz")
+    rtv32 = port.CodecRuntime(vcfg, copy.deepcopy(vmodel), device=dev,
+                              policy=port.F32_POLICY)
+    rtv16 = port.CodecRuntime(vcfg, vmodel, device=dev,
+                              policy=port.BF16_POLICY)
+
+    # The large preset: the flagship's trained codec (the two presets share
+    # its widths), a UNet and a conditioning head drawn from a seed.
+    lcfg = port.flagship()
+    lmodel = port.CDCModel(lcfg.model)
+    drawn = ("unet.", "cond_head.")
+    draw_weights(lmodel, seed=0, prefixes=drawn)
+    missing, unexpected = lmodel.load_state_dict(
+        {k: v for k, v in state.items() if not k.startswith(drawn)},
+        strict=False)
+    check(not unexpected and all(k.startswith(drawn) for k in missing),
+          f"large preset: codec weights do not fit ({unexpected})")
+    rtL = port.CodecRuntime(lcfg, lmodel, device=dev, policy=port.BF16_POLICY)
+
+    # Shape discovery: the shapes a path gives each kernel.
     orig_gn, orig_attn = groupnorm.gn_silu_cuda, attn_mod.attention_cuda
 
-    def rec_gn(x, gamma, beta, num_groups, eps=1e-5):
-        seen["gn_silu"][(tuple(x.shape), num_groups)] += 1
-        return orig_gn(x, gamma, beta, num_groups, eps)
+    def discover(run) -> dict:
+        """The kernel shapes ``run`` hands the wrappers, with their counts."""
+        into = {"gn_silu": collections.Counter(),
+                "attention": collections.Counter()}
 
-    def rec_attn(q, k, v, scale):
-        # The layout too: the attention block passes head views of its
-        # [B, N, H·d] projections, not contiguous [B, H, N, d] tensors.
-        views = not (q.is_contiguous() or k.is_contiguous()
-                     or v.is_contiguous())
-        seen["attention"][(tuple(q.shape), tuple(k.shape), views)] += 1
-        return orig_attn(q, k, v, scale)
+        def rec_gn(x, gamma, beta, num_groups, eps=1e-5):
+            into["gn_silu"][(tuple(x.shape), num_groups)] += 1
+            return orig_gn(x, gamma, beta, num_groups, eps)
 
-    groupnorm.gn_silu_cuda, attn_mod.attention_cuda = rec_gn, rec_attn
-    try:
-        rt16.decompress(blob768)
-    finally:
-        groupnorm.gn_silu_cuda, attn_mod.attention_cuda = orig_gn, orig_attn
+        def rec_attn(q, k, v, scale):
+            # The layout too: the attention block passes head views of its
+            # [B, N, H·d] projections, not contiguous [B, H, N, d] tensors.
+            views = not (q.is_contiguous() or k.is_contiguous()
+                         or v.is_contiguous())
+            into["attention"][(tuple(q.shape), tuple(k.shape), views)] += 1
+            return orig_attn(q, k, v, scale)
+
+        groupnorm.gn_silu_cuda, attn_mod.attention_cuda = rec_gn, rec_attn
+        try:
+            run()
+        finally:
+            groupnorm.gn_silu_cuda, attn_mod.attention_cuda = orig_gn, orig_attn
+        return into
+
+    seen = discover(lambda: rt16.decompress(blob768))
     say("kernels", f"main-path shapes: {len(seen['gn_silu'])} GN+SiLU, "
         f"{len(seen['attention'])} attention")
+    # One step of every other path: guidance (batch 2), 6 and 48 tiles, the
+    # large preset plain and guided (head widths 48 and 64), the 384x512
+    # fixture plain and guided, and the variable-rate checkpoint at both
+    # sizes: every shape the later phases launch is held against its plain
+    # version in phase 3.
+    y48 = torch.zeros((48, 20, 20, cfg.model.codec.latent_channels),
+                      dtype=torch.int32, device=dev)
+    modes = discover(lambda: (
+        rt16.decompress(blob768, steps=1, guidance=2.0),
+        rt16.decompress_tiled(blob768, steps=1),
+        rt16._device_stage(y48, torch.zeros((), device=dev), 1, 0.0, 0.5,
+                           320, 320),
+        rtL.decompress(blob768, steps=1),
+        rtL.decompress(blob768, steps=1, guidance=2.0),
+        rt16.decompress(blob, steps=1),
+        rt32.decompress(blob, steps=1, guidance=2.0),
+        rtv16.decompress(rtv16.compress(crop, quality=1), steps=1),
+        rtv16.decompress(rtv16.compress(img768, quality=1), steps=1)))
+    new_gn = [k for k in modes["gn_silu"] if k not in seen["gn_silu"]]
+    new_attn = [k for k in modes["attention"] if k not in seen["attention"]]
+    say("kernels", f"shapes of the other paths (guidance, 6 and 48 tiles, "
+        f"the large preset, 384x512 plain and guided, the variable-rate "
+        f"model) not on the main path: {len(new_gn)} GN+SiLU, "
+        f"{len(new_attn)} attention")
+    check(any(q[0] == 48 for q, _, _ in new_attn)
+          and {q[3] for q, _, _ in new_attn} >= {24, 48, 64},
+          f"the other paths did not reach batch 48 and d 48, 64: {new_attn}")
+    check(any(q[:3] == (2, 4, 768) for q, _, _ in new_attn)
+          and any(q[:3] == (1, 4, 768) for q, _, _ in new_attn),
+          f"the 384x512 decodes were not discovered: {new_attn}")
 
     # ---- 3. kernels vs plain ----
     gen = torch.Generator(dev).manual_seed(0)
@@ -285,7 +443,8 @@ def main() -> None:
     errs = {"gn_silu": 0.0, "attention": 0.0}
     # Adversarial: C·itemsize off 16 bytes (the scalar path), batch 3, one
     # row, more images than resident blocks, the widest C (channel passes).
-    gn_cases = list(seen["gn_silu"]) + [
+    path_gn = set(seen["gn_silu"]) | set(new_gn)
+    gn_cases = list(seen["gn_silu"]) + new_gn + [
         ((3, 7, 5, 16), 4), ((2, 9, 5, 20), 4), ((3, 16, 24, 64), 16),
         ((1, 1, 1, 32), 16), ((2, 1, 1, 20), 4), ((600, 2, 2, 16), 4),
         ((1, 3, 5, 3072), 32), ((1, 6, 5, 32), 16, "unaligned")]
@@ -303,7 +462,7 @@ def main() -> None:
             say("kernels", f"gn_silu {shape}/{groups} {dn}: max|err| "
                 f"{err:.3g} (bound {bound:g})")
             check(err <= bound, f"gn_silu {shape}/{groups} {dn} err {err}")
-            if dn == "bf16" and (shape, groups) in seen["gn_silu"]:
+            if dn == "bf16" and (shape, groups) in path_gn:
                 errs["gn_silu"] = max(errs["gn_silu"], err)
     # |mean| ≫ σ (f32): E[x²] − mean² would lose the variance. Against the
     # plain version in f64; the normalised output to 1e-3.
@@ -339,7 +498,7 @@ def main() -> None:
         return err
 
     for dn in dtypes:
-        for (qs, ks, views) in seen["attention"]:
+        for (qs, ks, views) in list(seen["attention"]) + new_attn:
             for lay in sorted({views, False}):
                 err = attn_case(qs, ks, dn, views=lay)
                 if dn == "bf16":
@@ -360,7 +519,6 @@ def main() -> None:
                   qkv=tuple(wide[i][..., 3:27] for i in range(3)))
 
     # ---- 4. fixture parity (F32_POLICY, TF32 off) ----
-    blob = fx["blob"].tobytes()
     hdr, z_sym, (y_bytes,), (ph, pw) = rt32._host_z_stage(blob)
     means, idx = rt32._hyper_stage(z_sym)
     y_sym = rt32.y_codec.decode(y_bytes, idx)
@@ -575,7 +733,6 @@ def main() -> None:
                     for a, b in zip(mine, theirs))
         return n, worst
 
-    crop = fx["crop_u8"]
     t0 = time.perf_counter()
     enc = rt32.compress(crop, optimize_gamma="spatial")
     enc_s = time.perf_counter() - t0
@@ -615,16 +772,6 @@ def main() -> None:
         "bf16_bytes": len(enc16), "bf16_differ_from_jax_f32": n16}
 
     # ---- 8. vr: the variable-rate, space-channel checkpoint ----
-    vcfg = port.vr_wide_serving()
-    vmodel = port.CDCModel(vcfg.model)
-    vstate, vunused = port.load_params_npz(VR_WEIGHTS)
-    check(len(vstate) == 438 and not vunused, "vr_wide: arrays left unused")
-    vmodel.load_state_dict(vstate, strict=True)
-    vfx = np.load(FIXTURES / "vr_wide_384x512.npz")
-    rtv32 = port.CodecRuntime(vcfg, copy.deepcopy(vmodel), device=dev,
-                              policy=port.F32_POLICY)
-    rtv16 = port.CodecRuntime(vcfg, vmodel, device=dev,
-                              policy=port.BF16_POLICY)
     def forced_passes(rt, z_sym, y_sym, jax_idx):
         """Run the decoder's passes with each pass's symbols taken from
         ``y_sym`` (JAX's) and not from the coder. Returns (row indexes that
@@ -728,7 +875,6 @@ def main() -> None:
     REPORT["vr"] = {f"{q:g}": r for q, r in vr_rows.items()}
 
     # ---- 9. encode timing at 768×512, BF16_POLICY ----
-    img768 = np.load(FIXTURES / "image_768x512.npz")["image_u8"]
     _kernels.reset_launches()
     blob_s = rt16.compress(img768, optimize_gamma="spatial")
     torch.cuda.synchronize()
@@ -770,6 +916,370 @@ def main() -> None:
     REPORT["encode_timing_ms"] = enc_timing
     REPORT["compress_launches"] = enc_launches
 
+
+    # ---- the other decode paths: counts set to 0 before, read after ----
+    def counted(run):
+        _kernels.reset_launches()
+        out = run()
+        torch.cuda.synchronize()
+        return out, dict(_kernels.LAUNCHES)
+
+    def timed(run):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t)
+
+    def with_sample(runtime, policy, **sample):
+        """A runtime on the same model with other sample settings."""
+        scfg = dataclasses.replace(runtime.config, sample=dataclasses.replace(
+            runtime.config.sample, **sample))
+        return port.CodecRuntime(scfg, runtime.model, device=dev,
+                                 policy=policy)
+
+    path_launches = {}
+
+    # ---- 10. guidance and block cache on the trained flagship ----
+    mfx = np.load(FIXTURES / "flagship_modes.npz")
+    serve_steps = cfg.sample.steps
+    for name, rt, kwargs, want_n in (
+            ("guidance 2.0", rt32, {"guidance": 2.0},
+             decode_launches(cfg, serve_steps)),
+            ("block-cached, period 2",
+             with_sample(rt32, port.F32_POLICY, cache_period=2), {},
+             decode_launches(cfg, serve_steps, cache_period=2))):
+        got, n = counted(lambda: rt.decompress(blob, noise=eps, **kwargs))
+        key = "guide2_u8" if kwargs else "cache2_u8"
+        worst, within1 = lsb_gap(got, mfx[key])
+        say("modes", f"{name}, 384x512 F32_POLICY vs JAX: max|diff| {worst} "
+            f"LSB (bound 2), {100 * within1:.4f} % within 1 (bound 99.9 %); "
+            f"launches {n} (derived {want_n})")
+        check(worst <= 2 and within1 >= 0.999, f"{name} differs from JAX")
+        check(n == want_n, f"{name}: launches {n} != {want_n}")
+        check(not np.array_equal(got, serve_u8), f"{name} changed nothing")
+        path_launches["guidance" if kwargs else "block_cached"] = n
+        REPORT.setdefault("modes", {})[key] = {
+            "max_diff": worst, "within1": within1, "launches": n}
+    check(path_launches["guidance"] == {"gn_silu": 93, "attention": 60}
+          and path_launches["block_cached"] == {"gn_silu": 79,
+                                                "attention": 36},
+          "derived launch counts are not 93/60 and 79/36")
+    stage = lambda rt, **kw: rt._device_stage(
+        y7, m7, hdr7.steps, 0.0, gamma7, ph7, pw7, **kw)
+    # In turns, so that the three see the same host: its speed drifts by
+    # more within a run than the variants differ.
+    variants = {"plain": {}, "block_cached": {"cache_period": 2},
+                "guided": {"guidance": 2.0}}
+    turns = {name: [] for name in variants}
+    for rnd in range(8):
+        for name, kw in variants.items():
+            _, ms = timed(lambda: stage(rt16, **kw))
+            if rnd:                      # round 0 warms up
+                turns[name].append(ms)
+    stage_ms = {name: statistics.median(v) for name, v in turns.items()}
+    say("modes", f"768x512 device stage BF16_POLICY, in turns (median of 7 "
+        f"after 1 warm-up): plain {stage_ms['plain']:.2f} ms, block-cached "
+        f"period 2 {stage_ms['block_cached']:.2f} ms "
+        f"({stage_ms['block_cached'] / stage_ms['plain']:.3f} of it), guidance "
+        f"2.0 {stage_ms['guided']:.2f} ms "
+        f"({stage_ms['guided'] / stage_ms['plain']:.3f}); all runs: "
+        + "; ".join(f"{k} " + " ".join(f"{x:.1f}" for x in v)
+                    for k, v in turns.items()))
+    REPORT["modes"]["device_stage_ms"] = {"median": stage_ms, "runs": turns}
+
+    # ---- 11. tiled decode ----
+    from tpucdc_torch.parallel import (blend_tiles, make_tile_plan,
+                                       split_tiles)
+    t_mean = rt32.decompress_tiled(blob768, steps=0)
+    worst, _ = lsb_gap(t_mean, mfx["tiled_mean_u8"])
+    say("tiled", f"768x512, tile 256 halo 32, steps=0 F32_POLICY vs JAX: "
+        f"max|diff| {worst} LSB (bound 1)")
+    check(worst <= 1, "tiled mean decode differs from JAX")
+    plan = make_tile_plan(ph7, pw7, tile=256, halo=32)
+    e = plan.extent
+    check(plan.num_tiles == 6 and e == 320, f"tile plan {plan}")
+    tile_eps = torch.randn((6, e, e, 3), device=dev,
+                           generator=torch.Generator(dev).manual_seed(1))
+    t_ref, n = counted(lambda: rt32.decompress_tiled(blob768, noise=tile_eps))
+    want_n = decode_launches(cfg, serve_steps)
+    y_hat7, _ = rt32.decode_latent(blob768)
+    y_tiles = torch.from_numpy(split_tiles(y_hat7.cpu().numpy(), plan,
+                                           scale=16)).to(dev)
+    zero = torch.zeros((), device=dev)
+    singly = torch.cat([rt32._device_stage(
+        y_tiles[i:i + 1], zero, serve_steps, cfg.sample.eta, gamma7, e, e,
+        noise=tile_eps[i:i + 1]) for i in range(6)])
+    one_by_one = np.clip(blend_tiles(
+        singly.cpu().numpy().astype(np.float32), plan) + 0.5, 0, 255).astype(
+            np.uint8)[:hdr7.height, :hdr7.width]
+    worst, within1 = lsb_gap(t_ref, one_by_one)
+    say("tiled", f"refined tiled decode (6 tiles in one batch) vs the tiles "
+        f"decoded one by one, same noise, F32_POLICY: max|diff| {worst} LSB "
+        f"(bound 1), {100 * within1:.4f} % within 1, equal "
+        f"{np.array_equal(t_ref, one_by_one)}; launches {n} "
+        f"(derived {want_n})")
+    check(worst <= 1, "batched tiles differ from tiles decoded alone")
+    check(n == want_n == {"gn_silu": 93, "attention": 60},
+          f"tiled decode launches {n}")
+    path_launches["tiled_6"] = n
+
+    big = seeded_image(1536, 2048, seed=11)
+    big_blob, enc_ms = timed(lambda: rt16.compress(big))
+    torch.cuda.reset_peak_memory_stats()
+    whole, whole_ms = timed(lambda: rt16.decompress(big_blob, steps=0))
+    whole_mem = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tmean, tmean_ms = timed(lambda: rt16.decompress_tiled(big_blob, steps=0))
+    torch.cuda.reset_peak_memory_stats()
+    (tiled, n), tiled_ms = timed(lambda: counted(
+        lambda: rt16.decompress_tiled(big_blob)))
+    tiled_mem = torch.cuda.max_memory_allocated()
+    _, tiled_ms2 = timed(lambda: rt16.decompress_tiled(big_blob))
+    # Where the tiled decode's time goes: the batched device stage against
+    # the host's blend of the 48 fetched tiles (float64, numpy).
+    big_plan = make_tile_plan(1536, 2048, tile=256, halo=32)
+    big_y, big_hdr = rt16.decode_latent(big_blob)
+    big_tiles = torch.from_numpy(split_tiles(big_y.cpu().numpy(), big_plan,
+                                             scale=16)).to(dev)
+    x48, stage48_ms = timed(lambda: rt16._device_stage(
+        big_tiles, zero, serve_steps, cfg.sample.eta,
+        rt16._header_gamma(big_hdr, serve_steps, grid=False), e, e))
+    x48 = x48.cpu().numpy().astype(np.float32)
+    t0 = time.perf_counter()
+    blend_tiles(x48, big_plan)
+    blend_ms = 1e3 * (time.perf_counter() - t0)
+    psnr_tiles = psnr_db(tmean, whole)
+    say("tiled", f"2048x1536 (seeded image, {len(big_blob)} B, compress "
+        f"{enc_ms:.1f} ms) BF16_POLICY: decompress(steps=0) {whole_ms:.1f} "
+        f"ms, peak {whole_mem / 2**20:.0f} MiB; decompress_tiled(steps=0) "
+        f"{tmean_ms:.1f} ms, PSNR against the untiled mean decode "
+        f"{psnr_tiles:.2f} dB (bound 30); decompress_tiled, 48 tiles in one "
+        f"batch, {serve_steps} steps: {tiled_ms:.1f} ms then "
+        f"{tiled_ms2:.1f} ms (of it the device stage of the 48 tiles "
+        f"{stage48_ms:.1f} ms, the host's blend {blend_ms:.1f} ms, timed "
+        f"apart), peak {tiled_mem / 2**20:.0f} MiB, launches {n}; "
+        f"PSNR against the image: mean decode {psnr_db(whole, big):.2f} dB, "
+        f"tiled refined {psnr_db(tiled, big):.2f} dB")
+    check(tiled.shape == big.shape and tmean.shape == big.shape,
+          "tiled decode has the wrong shape")
+    check(psnr_tiles >= 30.0, "tiled mean decode is far from the untiled one")
+    check(n == want_n, f"48-tile decode launches {n} != {want_n}")
+    path_launches["tiled_48"] = n
+    REPORT["tiled"] = {
+        "bytes_2048x1536": len(big_blob), "compress_ms": enc_ms,
+        "untiled_mean_ms": whole_ms, "untiled_mean_peak_bytes": whole_mem,
+        "tiled_mean_ms": tmean_ms, "tiled_ms": [tiled_ms, tiled_ms2],
+        "tiled_device_stage_ms": stage48_ms, "tiled_blend_ms": blend_ms,
+        "tiled_peak_bytes": tiled_mem, "psnr_tiled_vs_untiled_mean": psnr_tiles,
+        "psnr_mean_vs_image": psnr_db(whole, big),
+        "psnr_tiled_vs_image": psnr_db(tiled, big)}
+
+    # ---- 12. batch encode and decode ----
+    def batch_round(name, rt, imgs, **enc):
+        def draws():
+            g = torch.Generator(dev).manual_seed(5)
+            return [torch.randn((1, *codec_runtime.pad_image(im)[0].shape[:2],
+                                 3), generator=g, device=dev) for im in imgs]
+        rt.compress_many(imgs[:1], **enc)       # warm-up
+        noise = draws()
+        ms = collections.defaultdict(list)
+        for rnd in range(4):
+            # One by one and batched in turns, the order swapped each round.
+            order = ("one", "many") if rnd % 2 == 0 else ("many", "one")
+            for which in order:
+                if which == "one":
+                    singles, t = timed(lambda: [rt.compress(im, **enc)
+                                                for im in imgs])
+                    ms["compress"].append(t)
+                    one, t = timed(lambda: [rt.decompress(b, noise=e)
+                                            for b, e in zip(singles, noise)])
+                    ms["decompress"].append(t)
+                else:
+                    many, t = timed(lambda: rt.compress_many(imgs, **enc))
+                    ms["compress_many"].append(t)
+                    (batch, n), t = timed(lambda: counted(
+                        lambda: rt.decompress_many(many, noise=noise)))
+                    ms["decompress_many"].append(t)
+            check(many == singles, f"{name}: compress_many bytes differ")
+            check(all(np.array_equal(a, b) for a, b in zip(batch, one)),
+                  f"{name}: decompress_many pixels differ")
+        med = {k: statistics.median(v[1:]) for k, v in ms.items()}
+        say("batch", f"{name}, {len(imgs)} images BF16_POLICY: bytes and "
+            f"pixels equal the one-by-one calls in each of 4 rounds; median "
+            f"of rounds 2-4 (ms): " + ", ".join(
+                f"{k} {v:.1f}" for k, v in med.items()) + "; all rounds: "
+            + "; ".join(f"{k} " + " ".join(f"{x:.0f}" for x in v)
+                        for k, v in ms.items()) + f"; launches {n}")
+        want = {k: len(imgs) * v
+                for k, v in decode_launches(rt.config, serve_steps).items()}
+        check(n == want, f"{name}: decompress_many launches {n} != {want}")
+        REPORT.setdefault("batch", {})[name] = {
+            "images": len(imgs), "median_ms": med, "runs_ms": dict(ms)}
+        return n
+
+    path_launches["batch_4"] = batch_round(
+        "flagship", rt16, [img768, img768[::-1].copy(), crop,
+                           np.roll(img768, 97, axis=1)])
+    path_launches["batch_3_vr"] = batch_round(
+        "vr_wide", rtv16, [img768, crop, img768[:, ::-1].copy()], quality=1)
+
+    # ---- 13. the large preset at full width ----
+    from tpucdc_torch.sampling import (ddim_sample, make_batched_cfg_eps_fn,
+                                       make_cfg_eps_fn)
+    seeded = lambda: torch.Generator(dev).manual_seed(3)
+    # The bitstream's header names the serving dial's 5 steps; the preset's
+    # own step count is asked for.
+    lsteps = lcfg.sample.steps
+    (ddim_u8, n), ddim_ms = timed(lambda: counted(
+        lambda: rtL.decompress(blob768, generator=seeded(), steps=lsteps)))
+    want_n = decode_launches(lcfg, lsteps)
+    ddim_again, ddim_ms2 = timed(lambda: rtL.decompress(
+        blob768, generator=seeded(), steps=lsteps))
+    say("large", f"presets.flagship() 768x512 BF16_POLICY, DDIM-{lsteps}: "
+        f"{ddim_ms:.0f} ms then {ddim_ms2:.0f} ms "
+        f"({ddim_ms2 / lsteps:.2f} ms a step); launches {n} (derived "
+        f"{want_n}); repeatable {np.array_equal(ddim_u8, ddim_again)}")
+    check(n == want_n == {"gn_silu": 2303, "attention": 2200},
+          f"large DDIM launches {n} != {want_n}")
+    check(ddim_u8.shape == img768.shape and ddim_u8.dtype == np.uint8
+          and np.array_equal(ddim_u8, ddim_again), "large DDIM decode")
+    check(0 < ddim_u8.std(), "large DDIM decode is constant")
+    path_launches["large_ddim"] = n
+
+    rtP = with_sample(rtL, port.BF16_POLICY, sampler="ddpm")
+    T = lcfg.model.schedule.num_steps
+    (ddpm_u8, n), ddpm_ms = timed(lambda: counted(
+        lambda: rtP.decompress(blob768, generator=seeded())))
+    want_n = decode_launches(lcfg, T)
+    ddpm_again = rtP.decompress(blob768, generator=seeded())
+    say("large", f"DDPM over all {T} steps: {ddpm_ms:.0f} ms "
+        f"({ddpm_ms / T:.2f} ms a step); launches {n} (derived {want_n}); "
+        f"repeatable {np.array_equal(ddpm_u8, ddpm_again)}")
+    check(n == want_n, f"large DDPM launches {n} != {want_n}")
+    check(ddpm_u8.shape == img768.shape and 0 < ddpm_u8.std()
+          and np.array_equal(ddpm_u8, ddpm_again), "large DDPM decode")
+    path_launches["large_ddpm"] = n
+
+    # Guidance: the batch-doubled net call against the two-call form. The
+    # weights are random and the preset's chain starts at t = T-1, where one
+    # DDIM update multiplies an error in ε̂ by sqrt(1-ᾱ)/sqrt(ᾱ) ≈ 2·10⁴: over
+    # 10 steps bf16's rounding (which differs between batch 1 and batch 2)
+    # grows beyond any bound worth stating, so that chain is gated in f32 and
+    # only printed in bf16. What gates bf16 is one net call, and one whole
+    # decode of two steps from t_start = 0.15·(T-1) (t = 150, then 0), where
+    # the updates do not amplify: its pixels may differ from the two-call
+    # chain's by twice what the first net call's measured error gives
+    # through the first update (the second, at t = 0, weighs ε̂ by 0.006),
+    # plus 2 LSB.
+    gsteps = 10
+    shape7 = (1, ph7, pw7, 3)
+    x_t = torch.randn(shape7, generator=seeded(), device=dev)
+    t_vec = torch.full((1,), 500, dtype=torch.int32, device=dev)
+    rtL32 = port.CodecRuntime(lcfg, copy.deepcopy(lmodel), device=dev,
+                              policy=port.F32_POLICY)
+    guided = {}
+
+    gamma_l = float(np.float32(rtL._header_gamma(hdr7, gsteps, grid=False)))
+
+    def crop7(x0, x_bar):
+        """The chain's x₀ as the device stage finishes it: γ blend, uint8."""
+        x = x_bar + gamma_l * (x0 - x_bar)
+        return codec_runtime._to_uint8(x).cpu().numpy()[0][
+            :hdr7.height, :hdr7.width]
+
+    with torch.inference_mode():
+        for name, rt in (("bf16", rtL), ("f32", rtL32)):
+            net = rt.model
+            _, y_l, mu_l, _ = rt._decode_symbols(blob768)
+            y_hat_l = y_l.to(torch.float32) + mu_l
+            cf, ct = net.cond_signal(y_hat_l)
+            x_bar = net.synthesize(y_hat_l)
+            two_call = make_cfg_eps_fn(
+                lambda x, t: net.denoise(x, t, cf, ct, x_bar),
+                lambda x, t: net.denoise(x, t, torch.zeros_like(cf),
+                                         torch.zeros_like(ct),
+                                         torch.zeros_like(x_bar)), 2.0)
+            cf2, ct2, xb2 = (torch.cat([a, torch.zeros_like(a)])
+                             for a in (cf, ct, x_bar))
+            doubled = make_batched_cfg_eps_fn(
+                lambda x, t: net.denoise(x, t, cf2, ct2, xb2), 2.0)
+            ref_eps = two_call(x_t, t_vec)
+            err = (doubled(x_t, t_vec) - ref_eps).abs().max().item()
+            ref_max = ref_eps.abs().max().item()
+            (g_u8, n), g_ms = timed(lambda: counted(lambda: rt.decompress(
+                blob768, generator=seeded(), guidance=2.0, steps=gsteps)))
+            g_again = rt.decompress(blob768, generator=seeded(), guidance=2.0,
+                                    steps=gsteps)
+            x0 = ddim_sample(two_call, rt.schedule, shape7,
+                             generator=seeded(), device=dev, x_ref=x_bar,
+                             tables=rt._decode_tables(gsteps, 0.0))
+            two_u8 = crop7(x0, x_bar)
+            # Two steps from the truncated start.
+            rt1 = with_sample(rt, rt.policy, truncate_frac=0.15)
+            tab1 = rt1._decode_tables(2, 0.0)
+            sa, c1 = (float(tab1[k][0])
+                      for k in ("sqrt_ab", "sqrt_one_minus_ab"))
+            t_1 = torch.full((1,), int(tab1["t"][0]), dtype=torch.int32,
+                             device=dev)
+            x_1 = sa * x_bar.to(torch.float32) + c1 * x_t   # the chain's start
+            ref_1 = two_call(x_1, t_1)
+            err_1 = (doubled(x_1, t_1) - ref_1).abs().max().item()
+            one_u8 = rt1.decompress(blob768, generator=seeded(), guidance=2.0,
+                                    steps=2)
+            two_1 = crop7(ddim_sample(two_call, rt.schedule, shape7,
+                                      generator=seeded(), device=dev,
+                                      x_ref=x_bar, tables=tab1), x_bar)
+            guided[name] = {
+                "net_call_max_err": err, "net_call_max_ref": ref_max,
+                "ms": g_ms, "launches": n, "steps": gsteps,
+                "repeatable": bool(np.array_equal(g_u8, g_again)),
+                "vs_two_call_psnr_db": psnr_db(g_u8, two_u8),
+                "vs_two_call_max_lsb": lsb_gap(g_u8, two_u8)[0],
+                "short_t": int(tab1["t"][0]),
+                "short_net_call_max_err": err_1,
+                "short_net_call_max_ref": ref_1.abs().max().item(),
+                "short_max_lsb": lsb_gap(one_u8, two_1)[0],
+                "short_psnr_db": psnr_db(one_u8, two_1),
+                "short_lsb_bound": 2 * 127.5 * gamma_l * c1 / sa * err_1 + 2}
+    rel = {"bf16": ATTN_BF16_REL, "f32": 1e-4}
+    for name, g in guided.items():
+        say("large", f"guidance 2.0 {name}: one net call, batch-doubled vs two "
+            f"calls: max|err| {g['net_call_max_err']:.3g} (max|ref| "
+            f"{g['net_call_max_ref']:.3g}); DDIM-{gsteps}: {g['ms']:.0f} ms, "
+            f"launches {g['launches']}, repeatable {g['repeatable']}; against "
+            f"the two-call chain PSNR {g['vs_two_call_psnr_db']:.2f} dB, "
+            f"max|diff| {g['vs_two_call_max_lsb']} LSB")
+        say("large", f"guidance 2.0 {name}, two steps from t = "
+            f"{g['short_t']}: net call max|err| "
+            f"{g['short_net_call_max_err']:.3g} (bound {rel[name]:g} of "
+            f"max|ref| {g['short_net_call_max_ref']:.3g}); decode against "
+            f"the two-call chain max|diff| {g['short_max_lsb']} LSB (bound "
+            f"{g['short_lsb_bound']:.1f}: twice that error through the first "
+            f"update, plus 2), "
+            f"PSNR {g['short_psnr_db']:.2f} dB")
+        check(g["launches"] == decode_launches(lcfg, gsteps)
+              and g["repeatable"], f"guided decode of the large preset {name}")
+        check(g["net_call_max_err"] <= rel[name] * g["net_call_max_ref"]
+              and g["short_net_call_max_err"]
+              <= rel[name] * g["short_net_call_max_ref"],
+              f"batch-doubled guidance differs from two calls ({name})")
+        check(g["short_max_lsb"] <= g["short_lsb_bound"],
+              f"two-step guided decode differs from the two-call chain "
+              f"({name})")
+    say("large", f"bounds: net call bf16 {ATTN_BF16_REL:g} max|ref|, f32 1e-4 "
+        f"max|ref|; two-step decode as printed; 10-step chain f32 PSNR 40 dB, "
+        f"bf16 printed only: on drawn weights the bf16 pixels of this preset "
+        f"carry launch counts, times and repeatability, nothing else")
+    check(guided["f32"]["vs_two_call_psnr_db"] >= 40.0,
+          "guided f32 chain differs from the two-call chain")
+    n = guided["bf16"]["launches"]
+    path_launches["large_guided"] = n
+    REPORT["large"] = {"ddim_ms": [ddim_ms, ddim_ms2], "ddim_steps": lsteps,
+                       "ddpm_ms": ddpm_ms, "ddpm_steps": T,
+                       "guided": guided}
+    REPORT["path_launches"] = path_launches
+
     kernels = []
     for name in ("gn_silu", "attention"):
         p = per[name]
@@ -777,6 +1287,8 @@ def main() -> None:
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "launches_compress_spatial": enc_launches[name],
+            **{f"launches_{path}": n[name]
+               for path, n in path_launches.items()},
             "max_abs_err": errs[name], "ms": p["ms"],
             "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
             "bound_by": ("bytes" if p["bytes_ms"] >= p["ops_ms"]

@@ -22,6 +22,12 @@ writes into ``tpucdc_torch/fixtures/``:
         crop128_blob, crop128_z_sym, crop128_y_sym   a plain ``compress`` of
                         the crop's top-left 128×128 and its symbols, for
                         the full-width encode test on the CPU.
+  flagship_modes.npz — the other ways to decode, for the same crop and ε:
+        guide2_u8       JAX ``decompress(guidance=2.0)`` of ``blob``;
+        cache2_u8       JAX ``decompress()`` of ``blob`` under
+                        ``sample.cache_period=2`` (block-cached DDIM);
+        tiled_mean_u8   JAX ``decompress_tiled(tile=256, halo=32, steps=0)``
+                        of flagship_768x512.tpucdc (6 tiles of 320×320).
   flagship_768x512.tpucdc — a plain ``compress`` of bench.py's image
       (``synthetic_images(1, 512, 768, seed=7)[0]``), for timing.
   image_768x512.npz — that image itself (``image_u8``), for timing encodes.
@@ -78,7 +84,7 @@ jax.config.update("jax_enable_compilation_cache", False)
 OUT = ROOT / "tpucdc_torch" / "fixtures"
 
 
-def flagship_runtime():
+def flagship_runtime(cache_period: int = 1):
     spec = json.loads((ROOT / "artifacts" / "flagship.json").read_text())
     serving = spec["serving"]
     cfg = build_eval_config(bool(spec["wide"]), spec["unet"],
@@ -86,7 +92,7 @@ def flagship_runtime():
     cfg = dataclasses.replace(cfg, sample=dataclasses.replace(
         cfg.sample, steps=int(serving["steps"]),
         truncate_frac=float(serving["truncate_frac"]),
-        blend_gamma=float(serving["gamma"])))
+        blend_gamma=float(serving["gamma"]), cache_period=cache_period))
     return _runtime(cfg, ROOT / spec["params_npz"])
 
 
@@ -163,8 +169,18 @@ def main():
           f"{time.time() - t0:.1f} s")
 
     img = synthetic_images(1, 512, 768, seed=7)[0]
-    (OUT / "flagship_768x512.tpucdc").write_bytes(rt.compress(img))
+    blob768 = rt.compress(img)
+    (OUT / "flagship_768x512.tpucdc").write_bytes(blob768)
     np.savez_compressed(OUT / "image_768x512.npz", image_u8=img)
+
+    np.savez_compressed(
+        OUT / "flagship_modes.npz",
+        guide2_u8=rt.decompress(blob, rng=jax.random.key(0), guidance=2.0),
+        cache2_u8=flagship_runtime(cache_period=2).decompress(
+            blob, rng=jax.random.key(0)),
+        tiled_mean_u8=rt.decompress_tiled(blob768, tile=256, halo=32,
+                                          steps=0))
+    print(f"flagship_modes.npz: {time.time() - t0:.1f} s")
 
     vr = vr_wide_runtime()
     arrays = {"qualities": np.asarray(VR_QUALITIES, np.float32)}

@@ -3,7 +3,10 @@
 
 Traces ``CodecRuntime.decompress`` of ``tpucdc_torch/fixtures/flagship_768x512.tpucdc``
 with ``torch.profiler`` (CPU and CUDA activities) under BF16_POLICY (the
-serving policy) and F32_POLICY, and reports per decode:
+serving policy) and F32_POLICY, and under BF16_POLICY also the decode with
+guidance 2.0 (batch-doubled), the block-cached decode (``cache_period=2``)
+and ``decompress_tiled`` (6 tiles of 320×320 in one batch), and reports per
+decode:
 
 - the host wall time without the profiler (median of 5 after 2 warm-ups),
   the summed device time of all CUDA kernels in the traced decodes, and the
@@ -26,6 +29,7 @@ from __future__ import annotations
 import argparse
 import collections
 import copy
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -60,7 +64,8 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile(runtime, blob: bytes, decodes: int) -> dict:
+def profile(decode, decodes: int) -> dict:
+    """Profile ``decode()``, one call of an entry point on one bitstream."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -68,7 +73,7 @@ def profile(runtime, blob: bytes, decodes: int) -> dict:
     walls = []
     for _ in range(2 + 5):
         t0 = time.perf_counter()
-        runtime.decompress(blob)
+        decode()
         torch.cuda.synchronize()
         walls.append(1e3 * (time.perf_counter() - t0))
     # The profiler slows the host; shares are taken against the wall time of
@@ -78,7 +83,7 @@ def profile(runtime, blob: bytes, decodes: int) -> dict:
                                    ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(decodes):
-            runtime.decompress(blob)
+            decode()
         torch.cuda.synchronize()
         traced_ms = 1e3 * (time.perf_counter() - t0) / decodes
     kernels = [e for e in prof.key_averages()
@@ -135,10 +140,21 @@ def main() -> None:
     blob = BLOB.read_bytes()
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "decodes": args.decodes}
-    for name, policy in (("bf16", port.BF16_POLICY), ("f32", port.F32_POLICY)):
-        runtime = port.CodecRuntime(cfg, copy.deepcopy(model), device="cuda",
-                                    policy=policy)
-        report[name] = profile(runtime, blob, args.decodes)
+    def runtime(policy, **sample):
+        scfg = dataclasses.replace(cfg, sample=dataclasses.replace(
+            cfg.sample, **sample))
+        return port.CodecRuntime(scfg, copy.deepcopy(model), device="cuda",
+                                 policy=policy)
+
+    bf16, f32 = runtime(port.BF16_POLICY), runtime(port.F32_POLICY)
+    cached = runtime(port.BF16_POLICY, cache_period=2)
+    for name, decode in (
+            ("bf16", lambda: bf16.decompress(blob)),
+            ("f32", lambda: f32.decompress(blob)),
+            ("bf16_guidance_2", lambda: bf16.decompress(blob, guidance=2.0)),
+            ("bf16_block_cached_2", lambda: cached.decompress(blob)),
+            ("bf16_tiled_6", lambda: bf16.decompress_tiled(blob))):
+        report[name] = profile(decode, args.decodes)
         r = report[name]
         print(f"[{name}] wall {r['wall_ms']:.2f} ms/decode, device busy "
               f"{r['device_busy_ms']:.2f} ms ({100 * r['device_busy_share']:.1f} "

@@ -89,6 +89,16 @@ def init_jax(cfg, seed: int = 0, perturb: float = 0.05):
     return model, params
 
 
+def with_gain_ladder(params, channels: int):
+    """Gains 0.5, 1, 2 (times a per-channel jitter), inverse gains 1/gain:
+    a ladder whose rate rises with quality, as a trained one does."""
+    jitter = 1 + 0.1 * np.random.default_rng(7).random((3, channels))
+    gains = (np.array([[0.5], [1.0], [2.0]]) * jitter).astype(np.float32)
+    tree = dict(params["params"], gains=jnp.asarray(gains),
+                inv_gains=jnp.asarray((1.0 / gains).astype(np.float32)))
+    return {"params": tree}
+
+
 @functools.lru_cache(maxsize=1)
 def flagship_jax():
     """(config, F32 JAX model, params) of the served flagship."""

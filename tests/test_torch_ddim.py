@@ -70,7 +70,8 @@ def test_truncated_chain_matches_jax(prediction, eta):
         _net_torch, make_schedule("cosine", 1000), SHAPE, num_steps=steps,
         eta=eta, noise=torch.from_numpy(np.array(eps)),
         step_noise=[torch.from_numpy(np.array(z)) for z in zs],
-        x_ref=torch.from_numpy(x_ref), t_start=t_start, prediction=prediction)
+        x_ref=torch.from_numpy(x_ref), t_start=t_start, prediction=prediction,
+        device="cpu")
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 
@@ -79,6 +80,6 @@ def test_generator_noise_is_reproducible():
     run = lambda seed: ddim_sample(
         _net_torch, sched, SHAPE, num_steps=3, eta=0.5, t_start=100,
         generator=torch.Generator().manual_seed(seed),
-        x_ref=torch.zeros(SHAPE), prediction="residual")
+        x_ref=torch.zeros(SHAPE), prediction="residual", device="cpu")
     assert torch.equal(run(3), run(3))
     assert not torch.equal(run(3), run(4))

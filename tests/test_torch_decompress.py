@@ -61,11 +61,23 @@ def test_tiny_decompress_matches_jax(tiny_pair, steps, gamma):
 
 
 def test_unported_modes_raise(tiny_pair):
-    _, trt, blob = tiny_pair
+    """What is still not ported raises and names the roadmap: the multi-card
+    branch of the tiled decode and the analytic rate estimate. A header that
+    asks for guidance no longer does: it decodes, to JAX's pixels."""
+    jrt, trt, blob = tiny_pair
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
+        trt.decompress_tiled(blob, mesh=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        trt.estimate_bpp(np.zeros((64, 64, 3), np.uint8))
     hdr, streams = jax_entropy.read_bitstream(blob)
     hdr.guidance = 2.0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trt.decompress(jax_entropy.write_bitstream(hdr, streams))
+    guided = jax_entropy.write_bitstream(hdr, streams)
+    want = jrt.decompress(guided, rng=jax.random.key(0))
+    got = trt.decompress(guided, noise=torch.from_numpy(_jax_eps((1, 64, 64, 3))))
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert diff.max() <= 1, f"max |diff| {diff.max()}"
+    assert not np.array_equal(got, trt.decompress(
+        blob, noise=torch.from_numpy(_jax_eps((1, 64, 64, 3)))))
 
 
 @pytest.fixture(scope="module")

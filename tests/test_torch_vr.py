@@ -13,7 +13,6 @@ than 1.
 
 import dataclasses
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -25,7 +24,7 @@ from tests._torch_jax_helpers import (one_torch_thread,  # noqa: F401
                                       assert_encoders_agree,
                                       assert_round_trip_exact, init_jax,
                                       symbols, tiny_config, to_torch_config,
-                                      torch_model)
+                                      torch_model, with_gain_ladder)
 from tpucdc_torch import CDCModel, CodecRuntime, F32_POLICY
 from tpucdc_torch.config import CodecConfig
 from tpucdc_torch.entropy import read_bitstream, write_bitstream
@@ -35,21 +34,11 @@ from tpucdc_torch.utils import load_params_npz
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
-def _with_ladder(params, channels: int):
-    """Gains 0.5, 1, 2 (times a per-channel jitter), inverse gains 1/gain:
-    a ladder whose rate rises with quality, as a trained one does."""
-    jitter = 1 + 0.1 * np.random.default_rng(7).random((3, channels))
-    gains = (np.array([[0.5], [1.0], [2.0]]) * jitter).astype(np.float32)
-    tree = dict(params["params"], gains=jnp.asarray(gains),
-                inv_gains=jnp.asarray((1.0 / gains).astype(np.float32)))
-    return {"params": tree}
-
-
 @pytest.fixture(scope="module", params=CONTEXTS)
 def pair(request):
     cfg = tiny_config(steps=2, context=request.param, num_qualities=3)
     jmodel, params = init_jax(cfg)
-    params = _with_ladder(params, cfg.model.codec.latent_channels)
+    params = with_gain_ladder(params, cfg.model.codec.latent_channels)
     jrt = JaxRuntime(cfg, jmodel, params)
     trt = CodecRuntime(to_torch_config(cfg), torch_model(cfg, params),
                        device="cpu", policy=F32_POLICY)

@@ -1,8 +1,8 @@
 """Typed dataclass configs, mirroring tpucdc/config.py field for field.
 
 The codec, conditioning and UNet configs live beside their modules in the
-JAX package; the port keeps them all here. Training settings wait for the
-training slice.
+JAX package; the port keeps them all here. Of the training settings only the
+ones a preset names are here; the rest wait for the training slice.
 """
 
 from __future__ import annotations
@@ -83,12 +83,29 @@ class UNetConfig:
     # Token dim of the cross-attention conditioning sequence (0 = off).
     cond_token_dim: int = 0
     groups: int = 32
-    # Deep-block cache split; the port has no block-cached sampler yet.
+    # First level considered "deep" for block caching (None → the first
+    # attention level, or the last level when there is no attention).
     cache_split: Optional[int] = None
 
     @property
     def level_channels(self) -> tuple[int, ...]:
         return tuple(self.base_channels * m for m in self.channel_mult)
+
+    @property
+    def split_level(self) -> int:
+        if self.cache_split is not None:
+            return self.cache_split
+        if self.attn_levels:
+            return max(1, min(self.attn_levels))
+        return len(self.channel_mult) - 1
+
+    def cache_shape(self, batch: int, height: int, width: int
+                    ) -> tuple[int, int, int, int]:
+        """Shape of the deep-segment cache for an image of (height, width)."""
+        split = self.split_level
+        down = self.patch_size * 2 ** (split - 1)
+        return (batch, height // down, width // down,
+                self.level_channels[split])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,6 +156,16 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The training settings the presets name; the rest of the JAX package's
+    TrainConfig waits for the training slice."""
+    batch_size: int = 32
+    crop_size: int = 256
+    # R-D tradeoff: loss = rate_bpp + lambda * distortion.
+    rd_lambda: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
 class SampleConfig:
     steps: int = 100
     eta: float = 0.0
@@ -155,6 +182,7 @@ class SampleConfig:
 @dataclasses.dataclass(frozen=True)
 class Config:
     model: ModelConfig = ModelConfig()
+    train: TrainConfig = TrainConfig()
     sample: SampleConfig = SampleConfig()
 
     def validated(self) -> "Config":

@@ -5,7 +5,9 @@ cross-attention at the configured levels and at mid, a sinusoidal timestep
 embedding, and latent conditioning by channel concat (features at the
 post-patch grid) and by cross-attention (tokens as K/V). An input
 space-to-depth "patch" and an output depth-to-space put the network on a
-coarser grid. The block-cache split of the JAX UNet is not ported yet.
+coarser grid. The forward pass is cut at ``config.split_level`` into a shallow
+and a deep segment, so that block-cached sampling can reuse the deep
+segment's output (``deep_cache`` / ``return_cache``).
 """
 
 from __future__ import annotations
@@ -44,7 +46,11 @@ def _depth_to_space(x: torch.Tensor, p: int) -> torch.Tensor:
 
 
 class UNet(nn.Module):
-    """``UNet(x_t, t, cond_features, cond_tokens) -> net output`` (f32, NHWC)."""
+    """``UNet(x_t, t, cond_features, cond_tokens) -> net output`` (f32, NHWC).
+
+    Call once with ``return_cache=True`` for (output, cache), then pass
+    ``deep_cache=cache`` on later steps to skip the deep segment.
+    """
 
     def __init__(self, config: UNetConfig, policy: Policy = DEFAULT_POLICY):
         super().__init__()
@@ -149,9 +155,62 @@ class UNet(nn.Module):
                 h = xattn[li][bi](h, cond_tokens)
         return h
 
+    def _down_level(self, li, h, temb, cond_tokens, skips):
+        for bi in range(self.config.num_res_blocks):
+            h = self.down_res[li][bi](h, temb)
+            h = self._attend(li, bi, h, cond_tokens, self.down_attn,
+                             self.down_xattn)
+            skips.append(h)
+        if li != len(self.config.channel_mult) - 1:
+            h = self.downsamplers[li](h)
+            skips.append(h)
+        return h
+
+    def _up_level(self, li, h, temb, cond_tokens, skips):
+        for bi in range(self.config.num_res_blocks + 1):
+            h = torch.cat([h, skips.pop()], dim=-1)
+            h = self.up_res[li][bi](h, temb)
+            h = self._attend(li, bi, h, cond_tokens, self.up_attn,
+                             self.up_xattn)
+        if li != 0:
+            h = self.upsamplers[li - 1](h)
+        return h
+
+    def _deep(self, h, temb, cond_tokens):
+        """Levels ≥ split_level down + mid + up, with skips of their own.
+
+        Input and output live at the split boundary: the input is level
+        split-1's downsample output, the output is the upsampled tensor the
+        shallow up path consumes.
+        """
+        split = self.config.split_level
+        n_levels = len(self.config.channel_mult)
+        # The boundary tensor is both the deep input and the first deep skip
+        # (popped by up-level split's last res block).
+        skips = [h]
+        for li in range(split, n_levels):
+            h = self._down_level(li, h, temb, cond_tokens, skips)
+        h = self.mid_res1(h, temb)
+        h = self.mid_attn(h)
+        if cond_tokens is not None:
+            h = self.mid_xattn(h, cond_tokens)
+        h = self.mid_res2(h, temb)
+        for li in reversed(range(split, n_levels)):
+            h = self._up_level(li, h, temb, cond_tokens, skips)
+        if skips:
+            raise RuntimeError("UNet deep skip stack not consumed")
+        return h
+
     def forward(self, x_t: torch.Tensor, t: torch.Tensor,
                 cond_features: Optional[torch.Tensor] = None,
-                cond_tokens: Optional[torch.Tensor] = None) -> torch.Tensor:
+                cond_tokens: Optional[torch.Tensor] = None,
+                deep_cache: Optional[torch.Tensor] = None,
+                return_cache: bool = False):
+        """The net output; with ``return_cache`` (output, deep cache in f32).
+
+        ``deep_cache`` (from an earlier ``return_cache`` call) stands in for
+        the deep segment, which is then not run.
+        """
         cfg, pol = self.config, self.policy
         if (cfg.cond_channels > 0) != (cond_features is not None):
             raise ValueError("cond_features must match config.cond_channels")
@@ -159,38 +218,32 @@ class UNet(nn.Module):
             raise ValueError("cond_tokens must match config.cond_token_dim")
         if cond_tokens is not None:
             cond_tokens = pol.cast_to_compute(cond_tokens)
-        n_levels = len(cfg.channel_mult)
 
         temb = self._temb(t)
         h = self._stem(x_t, cond_features)
-        skips = [h]
-        for li in range(n_levels):
-            for bi in range(cfg.num_res_blocks):
-                h = self.down_res[li][bi](h, temb)
-                h = self._attend(li, bi, h, cond_tokens, self.down_attn,
-                                 self.down_xattn)
-                skips.append(h)
-            if li != n_levels - 1:
-                h = self.downsamplers[li](h)
-                skips.append(h)
 
-        h = self.mid_res1(h, temb)
-        h = self.mid_attn(h)
-        if cond_tokens is not None:
-            h = self.mid_xattn(h, cond_tokens)
-        h = self.mid_res2(h, temb)
+        split = cfg.split_level
+        skips = [h]                  # the conv_in skip: up level 0's last pop
+        for li in range(split):
+            h = self._down_level(li, h, temb, cond_tokens, skips)
+        # The boundary skip (level split-1's downsample output, which is h)
+        # belongs to the deep segment, which pushes it again itself.
+        skips.pop()
 
-        for li in reversed(range(n_levels)):
-            for bi in range(cfg.num_res_blocks + 1):
-                h = torch.cat([h, skips.pop()], dim=-1)
-                h = self.up_res[li][bi](h, temb)
-                h = self._attend(li, bi, h, cond_tokens, self.up_attn,
-                                 self.up_xattn)
-            if li != 0:
-                h = self.upsamplers[li - 1](h)
+        if deep_cache is not None:
+            deep_out = pol.cast_to_compute(deep_cache)
+        else:
+            deep_out = self._deep(h, temb, cond_tokens)
+
+        h = deep_out
+        for li in reversed(range(split)):
+            h = self._up_level(li, h, temb, cond_tokens, skips)
         if skips:
             raise RuntimeError("UNet skip stack not consumed")
 
         h = self.norm_out(h)
         h = self.conv_out(h, pol.compute_dtype)
-        return _depth_to_space(h, cfg.patch_size).to(torch.float32)
+        out = _depth_to_space(h, cfg.patch_size).to(torch.float32)
+        if return_cache:
+            return out, deep_out.to(torch.float32)
+        return out

@@ -130,3 +130,13 @@ class CDCModel(nn.Module):
 
     def denoise(self, x_t, t, cond_f, cond_t, x_bar=None) -> torch.Tensor:
         return self.unet(self._with_bar(x_t, x_bar), t, cond_f, cond_t)
+
+    def denoise_fresh(self, x_t, t, cond_f, cond_t, x_bar=None):
+        """Full forward → (net output, deep-block cache) for cached sampling."""
+        return self.unet(self._with_bar(x_t, x_bar), t, cond_f, cond_t,
+                         return_cache=True)
+
+    def denoise_cached(self, x_t, t, cond_f, cond_t, deep_cache, x_bar=None):
+        """Shallow-only forward that reuses the deep cache."""
+        return self.unet(self._with_bar(x_t, x_bar), t, cond_f, cond_t,
+                         deep_cache=deep_cache)

@@ -22,8 +22,18 @@ Decode (``decompress``):
   2. the same ``_y_passes``, reading streams instead of writing them;
   3. device stage (``_device_stage``, JAX's ``_sample_fn``): ŷ = y_sym + μ,
      × the inverse gain of the header's quality, the conditioning head,
-     g_s → x̄, the truncated DDIM refine (``steps=0`` is the mean decode
-     x̄), the γ blend, uint8.
+     g_s → x̄, the sampler (``steps=0`` is the mean decode x̄), the γ
+     blend, uint8. The sampler is the truncated DDIM refine; with
+     ``guidance`` ≠ 1 its net call is batch-doubled classifier-free
+     guidance, with ``sample.cache_period`` > 1 it is block-cached DDIM,
+     with ``sample.sampler == "ddpm"`` the ancestral sampler over all T
+     steps.
+
+``decompress_tiled`` decodes a large image as one batch of overlapping tiles
+and blends them on the host. ``compress_many`` / ``decompress_many`` are the
+batch forms, the same bytes and pixels as the one-by-one calls: the encode is
+the loop of ``compress``, the decode queues image i's sampler, lets its uint8
+leave unwaited and decodes image i+1's symbols while the card works.
 
 The encoder and the decoder get every row index from the same function
 called on tensors of the same shape: ``_y_passes`` is the only place that
@@ -34,14 +44,14 @@ desyncs rANS, and a bf16 convolution cannot reproduce another side's bf16
 rounding. g_a, h_a and the device stage run under the runtime's ``policy``
 (bf16 compute by default, as JAX serves).
 
-The analytic rate estimate (``estimate_bpp``, ``probe="estimate"``), batched
-coding, classifier-free guidance, DDPM, block caching and tiled decode
-raise NotImplementedError.
+The analytic rate estimate (``estimate_bpp``, ``probe="estimate"``) and the
+multi-card branch of the tiled decode (``mesh=``) raise NotImplementedError.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import warnings
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -54,9 +64,12 @@ from tpucdc_torch.entropy import (BitstreamHeader, RansCodec, read_bitstream,
                                   write_bitstream)
 from tpucdc_torch.model import CDCModel
 from tpucdc_torch.ops import make_schedule
+from tpucdc_torch.parallel import blend_tiles, make_tile_plan, split_tiles
 from tpucdc_torch.runtime import (DEFAULT_POLICY, F32_POLICY, Policy,
                                   pin_numerics, resolve_device, set_policy)
-from tpucdc_torch.sampling import ddim_sample, ddim_step_tables
+from tpucdc_torch.sampling import (ddim_sample, ddim_sample_blockcached,
+                                   ddim_step_tables, ddpm_sample,
+                                   make_batched_cfg_eps_fn)
 
 PAD_MULTIPLE = 64  # g_a 16× · h_a 4×
 
@@ -150,6 +163,25 @@ class CodecRuntime:
         """Device → host; every transfer of the coding path goes through here."""
         return t.cpu().numpy()
 
+    def _fetch_later(self, *tensors: torch.Tensor):
+        """Start device → host copies without waiting; returns ``wait()``,
+        which gives the numpy arrays once these copies (and nothing queued
+        after them) are done. On the card the copies go to pinned memory and
+        an event marks their end, so work queued behind them is not waited
+        for."""
+        if self.device.type != "cuda":
+            arrays = [t.numpy() for t in tensors]
+            return lambda: arrays
+        pinned = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(
+            t, non_blocking=True) for t in tensors]
+        done = torch.cuda.Event()
+        done.record()
+
+        def wait():
+            done.synchronize()
+            return [b.numpy() for b in pinned]
+        return wait
+
     def quality_gains(self, quality: float):
         """Continuous quality ∈ [0, num_qualities-1] → (gain, inv_gain) [C].
 
@@ -190,6 +222,17 @@ class CodecRuntime:
             steps=self.config.sample.steps,
             guidance=self.config.sample.guidance,
             quality_f=qf if fractional else float("nan"))
+
+    def _resolve_quality(self, quality_id: int, quality: float | None):
+        """The quality to code at: ``quality`` (continuous, clipped to the
+        ladder; an int where integral) if given, else ``quality_id``."""
+        if quality is None:
+            return int(quality_id)
+        if self._nq < 2:
+            raise ValueError("continuous quality needs a variable-rate "
+                             "model (codec.num_qualities > 1)")
+        q = float(np.clip(quality, 0.0, self._nq - 1))
+        return int(q) if q == int(q) else q
 
     # ---- encoder-only stage ----
 
@@ -344,12 +387,21 @@ class CodecRuntime:
                       steps: int, eta: float, gamma, ph: int, pw: int,
                       noise: Optional[torch.Tensor] = None,
                       generator: Optional[torch.Generator] = None,
-                      inv_gain: Optional[np.ndarray] = None
+                      inv_gain: Optional[np.ndarray] = None,
+                      guidance: float = 1.0, cache_period: int = 1,
+                      step_noise: Optional[Sequence[torch.Tensor]] = None
                       ) -> torch.Tensor:
-        """(ŷ symbols, μ) → uint8 [1, ph, pw, 3] on the device.
+        """(ŷ symbols, μ) → uint8 [B, ph, pw, 3] on the device; B is ŷ's
+        batch (one image, or the tiles of one).
 
         ``inv_gain`` ([C], variable-rate models) takes ŷ from the gained
-        coding domain to the conditioning domain.
+        coding domain to the conditioning domain. ``guidance`` ≠ 1 doubles
+        the net's batch: the second half carries zeroed conditioning
+        (features, tokens and x̄), while the chain's reference stays the real
+        x̄. ``cache_period`` > 1 (without guidance) is block-cached DDIM.
+        ``noise`` is the initial ε and ``step_noise`` the per-step z (DDPM;
+        DDIM with η > 0); what is not given is drawn from ``generator``
+        (seed 0 on the runtime's device when None).
         """
         y_hat = y_sym.to(torch.float32) + means
         if inv_gain is not None:
@@ -362,16 +414,44 @@ class CodecRuntime:
             if steps == 0:
                 return _to_uint8(x_bar)
         shape = (y_hat.shape[0], ph, pw, 3)
-        if generator is None and noise is None:
+        if generator is None:
             generator = torch.Generator(self.device).manual_seed(0)
+        model = self.model
+        use_cfg = float(guidance) != 1.0
+        if use_cfg:
+            cond_f2 = torch.cat([cond_f, torch.zeros_like(cond_f)], dim=0)
+            cond_t2 = torch.cat([cond_t, torch.zeros_like(cond_t)], dim=0)
+            x_bar2 = (None if x_bar is None else
+                      torch.cat([x_bar, torch.zeros_like(x_bar)], dim=0))
+            net_fn = make_batched_cfg_eps_fn(
+                lambda x2, t2: model.denoise(x2, t2, cond_f2, cond_t2, x_bar2),
+                float(guidance))
+        else:
+            def net_fn(x_t, t):
+                return model.denoise(x_t, t, cond_f, cond_t, x_bar)
 
-        def net_fn(x_t, t):
-            return self.model.denoise(x_t, t, cond_f, cond_t, x_bar)
-
-        x0 = ddim_sample(net_fn, self.schedule, shape, num_steps=steps,
-                         noise=noise, generator=generator, device=self.device,
-                         x_ref=x_bar, tables=self._decode_tables(steps, eta),
-                         prediction=self.config.model.prediction)
+        pred = self.config.model.prediction
+        draws = dict(noise=noise, step_noise=step_noise, generator=generator,
+                     device=self.device)
+        if self.config.sample.sampler == "ddpm":
+            if pred != "eps":
+                raise ValueError("ddpm sampler supports eps-prediction only")
+            x0 = ddpm_sample(net_fn, self.schedule, shape, **draws)
+        elif cache_period > 1 and not use_cfg:
+            x0 = ddim_sample_blockcached(
+                lambda x_t, t: model.denoise_fresh(x_t, t, cond_f, cond_t,
+                                                   x_bar),
+                lambda x_t, t, cache: model.denoise_cached(
+                    x_t, t, cond_f, cond_t, cache, x_bar),
+                self.schedule, shape, num_steps=steps,
+                cache_period=cache_period, x_ref=x_bar,
+                tables=self._decode_tables(steps, eta), prediction=pred,
+                **draws)
+        else:
+            x0 = ddim_sample(net_fn, self.schedule, shape, num_steps=steps,
+                             x_ref=x_bar,
+                             tables=self._decode_tables(steps, eta),
+                             prediction=pred, **draws)
         if x_bar is not None:
             if np.ndim(gamma) == 2:
                 # Per-tile γ grid (v5), bilinearly upsampled to the padded
@@ -385,6 +465,45 @@ class CodecRuntime:
                 g = float(np.float32(gamma))
             x0 = x_bar + g * (x0 - x_bar)
         return _to_uint8(x0)
+
+    def _header_gamma(self, hdr: BitstreamHeader, steps: int, grid=True):
+        """The blend dial a bitstream asks for: the v5 grid (a refined decode
+        only, and only where ``grid``), else the header's scalar, else
+        ``SampleConfig.blend_gamma``."""
+        if grid and hdr.gamma_grid is not None and steps != 0:
+            return hdr.gamma_grid_f
+        return (hdr.gamma_or_none if hdr.gamma_or_none is not None
+                else self.config.sample.blend_gamma)
+
+    def _header_inv_gain(self, hdr: BitstreamHeader):
+        """The inverse gain of the header's quality: the v4 ``quality_f``
+        (interpolated) when set, else the ``quality_id`` row; None for a
+        single-rate model."""
+        if self._nq < 2:
+            return None
+        qf = hdr.quality_f_or_none
+        return self.quality_gains(hdr.quality_id if qf is None else qf)[1]
+
+    def _serving_decode(self, hdr: BitstreamHeader, steps: int, y_sym, means,
+                        guidance, gamma, ph: int, pw: int, eta=None,
+                        **draws) -> torch.Tensor:
+        """One image's device stage as its header and the sample config ask;
+        shared by ``decompress`` and ``decompress_many``."""
+        sample = self.config.sample
+        cache_period = sample.cache_period
+        if (self._nq > 1 and hdr.quality_f_or_none is not None
+                and cache_period > 1):
+            # As in the JAX package, whose continuous-quality program has no
+            # block-cached variant.
+            warnings.warn(
+                "continuous-quality (v4) decode uses the plain DDIM "
+                "scan; sample.cache_period is ignored on this path",
+                stacklevel=3)
+            cache_period = 1
+        return self._device_stage(
+            y_sym, means, steps, sample.eta if eta is None else eta, gamma,
+            ph, pw, inv_gain=self._header_inv_gain(hdr), guidance=guidance,
+            cache_period=cache_period, **draws)
 
     # ---- public API ----
 
@@ -411,14 +530,7 @@ class CodecRuntime:
         ``decompress`` draws by default, so a later served decode on the
         same kind of device reproduces the scored reconstruction.
         """
-        if quality is not None:
-            if self._nq < 2:
-                raise ValueError("continuous quality needs a variable-rate "
-                                 "model (codec.num_qualities > 1)")
-            q = float(np.clip(quality, 0.0, self._nq - 1))
-            q = int(q) if q == int(q) else q
-        else:
-            q = int(quality_id)
+        q = self._resolve_quality(quality_id, quality)
         padded, (h, w) = pad_image(img_u8)
         x = torch.from_numpy(to_model_range(padded))[None].to(self.device)
         y, z_sym = self._analysis(x, q)
@@ -486,11 +598,66 @@ class CodecRuntime:
     def estimate_bpp(self, img_u8: np.ndarray, quality: float = 0) -> float:
         raise _not_ported("estimate_bpp (the analytic rate estimate)")
 
-    def compress_many(self, images, **kwargs):
-        raise _not_ported("compress_many")
+    def compress_many(self, imgs: Sequence[np.ndarray], quality_id: int = 0,
+                      quality: float | None = None) -> list[bytes]:
+        """Batch encode: ``compress`` on each image, in order.
 
-    def decompress_many(self, blobs, **kwargs):
-        raise _not_ported("decompress_many")
+        An encode without the γ search is a few milliseconds of device work
+        between fetches that its own rANS coding waits for, so the images
+        go one by one through the one encode path there is. ``optimize_gamma``
+        is serial per image by construction: use ``compress``.
+        """
+        return [self.compress(im, quality_id, quality=quality) for im in imgs]
+
+    def decompress_many(self, blobs: Sequence[bytes],
+                        noise: Optional[Sequence[torch.Tensor]] = None,
+                        generator: Optional[torch.Generator] = None,
+                        steps: int | None = None) -> list[np.ndarray]:
+        """Software-pipelined batch decode: the pixels of ``decompress`` on
+        each bitstream, given the same per-image noise.
+
+        ``noise`` is a list with one initial ε per image ([1, H_pad, W_pad,
+        3] each; the images may differ in size). Without it each image's ε is
+        drawn from ``generator`` in image order (seed 0 on the runtime's
+        device when None), so image 0 gets what a default ``decompress``
+        draws and the later images the draws that follow. Steps, γ and the
+        γ grid come from each image's own header; guidance is 1.
+
+        For every entropy model the loop is the same, on one thread and one
+        stream: image i's sampler is queued, its uint8 leaves through pinned
+        memory without being waited for, and image i+1's symbol decode (host
+        rANS and its entropy-parameter passes) runs while the card works on
+        image i.
+        """
+        if not blobs:
+            return []
+        if steps == 0 and not self._synth:
+            raise ValueError("steps=0 (mean decode) needs codec.synthesis")
+        if noise is not None and len(noise) != len(blobs):
+            raise ValueError(f"{len(noise)} noise tensors for {len(blobs)} "
+                             f"bitstreams")
+        if generator is None:
+            generator = torch.Generator(self.device).manual_seed(0)
+        out, pending = [], None
+        current = self._decode_symbols(blobs[0])
+        for i in range(len(blobs)):
+            hdr, y_sym, means, (ph, pw) = current
+            isteps = (hdr.steps or self.config.sample.steps
+                      if steps is None else steps)
+            # Queued, not waited for.
+            fetch = self._fetch_later(self._serving_decode(
+                hdr, isteps, y_sym, means, 1.0,
+                self._header_gamma(hdr, isteps), ph, pw,
+                noise=None if noise is None else noise[i],
+                generator=generator))
+            if pending is not None:
+                out.append(pending())
+            pending = (lambda fetch=fetch, hdr=hdr:
+                       fetch()[0][0][:hdr.height, :hdr.width])
+            if i + 1 < len(blobs):
+                current = self._decode_symbols(blobs[i + 1])
+        out.append(pending())
+        return out
 
     def _optimize_gamma(self, blob: bytes, img_u8: np.ndarray, candidates,
                         noise: Optional[torch.Tensor] = None,
@@ -576,41 +743,83 @@ class CodecRuntime:
     def decompress(self, blob: bytes, noise: Optional[torch.Tensor] = None,
                    generator: Optional[torch.Generator] = None,
                    steps: int | None = None, eta: float | None = None,
-                   gamma=None) -> np.ndarray:
+                   gamma=None, guidance: float | None = None,
+                   step_noise: Optional[Sequence[torch.Tensor]] = None
+                   ) -> np.ndarray:
         """Bitstream → HWC uint8 reconstruction.
 
-        ``noise`` is the sampler's initial ε, NHWC [1, H_pad, W_pad, 3]; it is
-        drawn from ``generator`` (seed 0 on the runtime's device when both are
-        None). ``gamma`` resolves as: the explicit argument (scalar or a
-        [gh, gw] grid), then the v5 header grid, then the header scalar, then
-        ``SampleConfig.blend_gamma``. A variable-rate model applies the
-        inverse gain of the header's quality: the v4 ``quality_f``
-        (interpolated) when set, else the ``quality_id`` row.
+        ``noise`` is the sampler's initial ε, NHWC [1, H_pad, W_pad, 3], and
+        ``step_noise`` the per-step z of DDPM (or DDIM with η > 0); what is
+        not given is drawn from ``generator`` (seed 0 on the runtime's device
+        when None). ``guidance`` resolves as: the argument, the header's,
+        ``SampleConfig.guidance``; a value other than 1 runs batch-doubled
+        classifier-free guidance. ``gamma`` resolves as: the explicit
+        argument (scalar or a [gh, gw] grid), then the v5 header grid, then
+        the header scalar, then ``SampleConfig.blend_gamma``. A variable-rate
+        model applies the inverse gain of the header's quality.
         """
         sample = self.config.sample
-        if sample.sampler != "ddim":
-            raise _not_ported(f"sampler {sample.sampler!r}")
-        if sample.cache_period > 1:
-            raise _not_ported("block-cached sampling")
         hdr, y_sym, means, (ph, pw) = self._decode_symbols(blob)
         if steps is None:
             steps = hdr.steps or sample.steps
         if steps == 0 and not self._synth:
             raise ValueError("steps=0 (mean decode) needs codec.synthesis")
-        if float(hdr.guidance or sample.guidance) != 1.0:
-            raise _not_ported("classifier-free guidance")
-        eta = sample.eta if eta is None else eta
+        if guidance is None:
+            guidance = hdr.guidance or sample.guidance
         if gamma is None:
-            if hdr.gamma_grid is not None and steps != 0:
-                gamma = hdr.gamma_grid_f
-            else:
-                gamma = (hdr.gamma_or_none if hdr.gamma_or_none is not None
-                         else sample.blend_gamma)
-        inv_gain = None
-        if self._nq > 1:
-            qf = hdr.quality_f_or_none
-            _, inv_gain = self.quality_gains(
-                hdr.quality_id if qf is None else qf)
-        img = self._device_stage(y_sym, means, steps, eta, gamma, ph, pw,
-                                 noise, generator, inv_gain)
+            gamma = self._header_gamma(hdr, steps)
+        img = self._serving_decode(hdr, steps, y_sym, means, guidance, gamma,
+                                   ph, pw, eta=eta, noise=noise,
+                                   generator=generator, step_noise=step_noise)
         return self._fetch(img)[0][:hdr.height, :hdr.width]
+
+    def decompress_tiled(self, blob: bytes,
+                         noise: Optional[torch.Tensor] = None,
+                         generator: Optional[torch.Generator] = None,
+                         tile: int = 256, halo: int = 32, mesh=None,
+                         steps: int | None = None) -> np.ndarray:
+        """High-resolution tiled decode: ŷ is split into overlapping tiles
+        (core ``tile``, ``halo`` on each side), all tiles go through one
+        batched device stage, and the halos are blended on the host.
+
+        ``noise`` is one [tiles, e, e, 3] tensor (e = tile + 2·halo), drawn in
+        one piece from ``generator`` (seed 0 on the runtime's device) when
+        None. Guidance is 1 and the blend dial is the header's scalar γ (a v5
+        grid is laid out for the whole canvas and is not used here). ``mesh``
+        (tiles sharded over several cards) is not ported.
+        """
+        if mesh is not None:
+            raise NotImplementedError(
+                "decompress_tiled(mesh=...) is not ported yet; see "
+                "ROADMAP.md, Queue 1 item 14")
+        sample = self.config.sample
+        y_hat, hdr = self.decode_latent(blob)
+        ph = hdr.height + ((-hdr.height) % PAD_MULTIPLE)
+        pw = hdr.width + ((-hdr.width) % PAD_MULTIPLE)
+        if steps is None:
+            steps = hdr.steps or sample.steps
+        if steps == 0 and not self._synth:
+            raise ValueError("steps=0 (mean decode) needs codec.synthesis")
+        ucfg = self.config.model.unet
+        divisor = ucfg.patch_size * 2 ** (len(ucfg.channel_mult) - 1)
+        extent = tile + 2 * halo
+        if extent % divisor:
+            raise ValueError(
+                f"tile+2*halo={extent} must be divisible by {divisor} "
+                f"(patch_size * 2^(levels-1)) for the UNet's down/up path")
+        plan = make_tile_plan(ph, pw, tile=tile, halo=halo)
+        y_tiles = torch.from_numpy(
+            split_tiles(self._fetch(y_hat), plan, scale=16)).to(self.device)
+        # The continuous-quality path has no block-cached variant (as in
+        # the JAX package).
+        cache_period = (1 if hdr.quality_f_or_none is not None
+                        else sample.cache_period)
+        x_tiles = self._fetch(self._device_stage(
+            y_tiles, torch.zeros((), device=self.device), steps, sample.eta,
+            self._header_gamma(hdr, steps, grid=False), extent, extent,
+            noise=noise, generator=generator,
+            inv_gain=self._header_inv_gain(hdr), cache_period=cache_period))
+        # Blend the halos in float, then back to uint8.
+        blended = blend_tiles(x_tiles.astype(np.float32), plan)
+        out = np.clip(blended + 0.5, 0, 255).astype(np.uint8)
+        return out[:hdr.height, :hdr.width]

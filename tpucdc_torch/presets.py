@@ -1,4 +1,5 @@
-"""Config presets: the CPU-test ``tiny`` model and the two trained models."""
+"""Config presets: the CPU-test ``tiny`` model, the large ``flagship`` with its
+sweep axes, and the two trained models."""
 
 from __future__ import annotations
 
@@ -6,7 +7,7 @@ import dataclasses
 
 from tpucdc_torch.config import (CodecConfig, ConditioningConfig, Config,
                                  ModelConfig, SampleConfig, ScheduleConfig,
-                                 UNetConfig)
+                                 TrainConfig, UNetConfig)
 
 
 def tiny() -> Config:
@@ -22,8 +23,52 @@ def tiny() -> Config:
                             patch_size=2, groups=8),
             schedule=ScheduleConfig(kind="cosine", num_steps=256),
         ),
+        train=TrainConfig(batch_size=8, crop_size=64, rd_lambda=8.0),
         sample=SampleConfig(steps=50),
     ).validated()
+
+
+def flagship() -> Config:
+    """The full-size model, the same as tpucdc.presets.flagship(): Kodak
+    768×512, DDIM-100 decode, ε-prediction.
+
+    patch_size 4 (space-to-depth at the input, depth-to-space at the output)
+    puts the UNet on a 192×128 grid for 768×512 inputs, with attention at
+    1536 and 384 tokens (head widths 48 and 64). Conditioning features are
+    emitted at the post-patch grid.
+    """
+    return Config(
+        model=ModelConfig(
+            codec=CodecConfig(hidden_channels=128, latent_channels=192,
+                              hyper_channels=128, synthesis=True),
+            cond=ConditioningConfig(feature_channels=64, token_dim=192,
+                                    hidden_channels=192),
+            unet=UNetConfig(base_channels=64, channel_mult=(1, 2, 3, 4),
+                            num_res_blocks=2, attn_levels=(2, 3), num_heads=4,
+                            patch_size=4, groups=32),
+            schedule=ScheduleConfig(kind="cosine", num_steps=1000),
+        ),
+        train=TrainConfig(batch_size=32, crop_size=256, rd_lambda=32.0),
+        sample=SampleConfig(steps=100),
+    ).validated()
+
+
+# λ grid of the rate-distortion sweep.
+RD_LAMBDA_GRID: tuple[float, ...] = (4.0, 8.0, 16.0, 32.0, 64.0, 128.0)
+
+
+def rd_sweep(base: Config | None = None) -> list[Config]:
+    base = base or flagship()
+    return [
+        dataclasses.replace(
+            base, train=dataclasses.replace(base.train, rd_lambda=lam))
+        for lam in RD_LAMBDA_GRID
+    ]
+
+
+# Guidance and step-count sweep axes of the perceptual evaluation.
+GUIDANCE_GRID: tuple[float, ...] = (1.0, 1.5, 2.0, 3.0)
+STEP_GRID: tuple[int, ...] = (10, 25, 50, 100)
 
 
 def flagship_serving() -> Config:

@@ -18,6 +18,9 @@ carry the flax names, so the mapping is mechanical:
 
 Every array of a checkpoint maps onto the model, so
 ``CDCModel.load_state_dict(strict=True)`` raises on a key either side lacks.
+
+``draw_weights`` fills a model that has no checkpoint (the large ``flagship``
+preset) from a seeded generator, where no JAX is at hand to initialise it.
 """
 
 from __future__ import annotations
@@ -87,3 +90,22 @@ def load_params_npz(path) -> tuple[dict, list[str]]:
     """Read a ``save_params_npz`` file into (state_dict, unused keys)."""
     with np.load(pathlib.Path(path)) as data:
         return params_from_jax({k: data[k] for k in data.files})
+
+
+@torch.no_grad()
+def draw_weights(module: torch.nn.Module, seed: int,
+                 prefixes: tuple[str, ...] = ("",)) -> None:
+    """Draw every convolution and dense ``weight`` under ``prefixes`` from
+    N(0, 1/fan_in) with a CPU generator seeded with ``seed``, in
+    ``named_parameters`` order, so the same seed gives the same model on any
+    device. Biases, norm scales and everything else keep the values they were
+    constructed with. The UNet's output convolution, which flax initialises
+    to zero, is drawn like the rest: with a zero head every net output would
+    be zero, whatever the layers before it computed.
+    """
+    gen = torch.Generator().manual_seed(seed)
+    for name, p in module.named_parameters():
+        if (name.endswith(".weight") and p.dim() >= 2
+                and name.startswith(prefixes)):
+            fan_in = p.numel() // p.shape[0]
+            p.copy_(torch.randn(p.shape, generator=gen) / fan_in ** 0.5)
