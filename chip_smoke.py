@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's decode and encode on one CUDA card and check them.
+"""Drive the PyTorch port on one CUDA card and check it: decode, encode,
+eval and the user-facing API and CLI.
 
 Runs the port (tpucdc_torch) only; imports nothing of JAX or tpucdc. Phases,
 in order; any failure raises, exits non-zero and prints no result line:
@@ -98,6 +99,31 @@ in order; any failure raises, exits non-zero and prints no result line:
                 decode (f32: PSNR >= 40 dB;
                 bf16: printed, the random weights amplify its rounding); all
                 repeatable under the same generator. Time per step.
+ 14. eval & API — (a) the port's PSNR, MS-SSIM, GMSD, LPIPS proxy and FID
+                features of the 384x512 fixture's served and mean decodes
+                against JAX's values (fixtures/eval_384x512.npz): PSNR
+                within 1e-4 dB, MS-SSIM and GMSD 1e-5, LPIPS and features
+                1e-4 relative; computed once before any runtime exists (run
+                right after phase 1, while PyTorch's cuDNN TF32 default is
+                on) and once here. (b) ``api.load_runtime("flagship",
+                artifacts/flagship_params.npz, SERVING_OVERRIDES)`` equals
+                ``flagship_serving()`` and decodes flagship_768x512.tpucdc
+                bit-equal to phase 6's runtime under seed 0; a runtime on
+                JAX's exported coder tables (``cdf_tables=``) decodes JAX's
+                bitstream to JAX's symbols. (c) ``evaluate_dataset`` over
+                ``eval_dataset("kodak")`` (24 images of 512x768, synthetic
+                without a Kodak directory) at 5 steps with LPIPS: 24 x 93
+                GN+SiLU and 24 x 60 attention launches, the aggregate row
+                and the per-image decode time; ``step_guidance_sweep`` over
+                steps (2, 5) x guidance (1, 2) on 2 images with FID;
+                ``time_decode``. (d) the CLI in-process
+                (``tpucdc_torch.cli.main.main``) on the trained flagship:
+                ``compress --optimize-gamma spatial`` gives
+                ``rt.compress``'s bytes, ``decompress --seed 0`` its pixels,
+                ``eval --sweep latency`` runs, and on ``vr_wide``
+                ``compress --target-bpp`` lands within 3 % of the target
+                with ``compress_to_bpp``'s bytes. Where Pillow is absent the
+                CLI's two image-I/O helpers read and write .npy (printed).
 
 The kernel checks of phase 3 also cover every shape these paths give the two
 kernels (batch 2, 6 and 48; head widths 48 and 64; the 384×512 fixture plain
@@ -267,6 +293,45 @@ def seeded_image(h: int, w: int, seed: int):
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
+# Phase 14 bounds against JAX's eval fixture (fixtures/eval_384x512.npz).
+EVAL_BOUNDS = {"psnr": 1e-4, "ms_ssim": 1e-5, "gmsd": 1e-5}   # absolute
+EVAL_REL = 1e-4                                    # LPIPS and the features
+
+
+def eval_metrics_check(torch, dev) -> dict:
+    """The port's PSNR, MS-SSIM, GMSD, LPIPS proxy and FID features of the
+    flagship fixture's decodes on the card, against JAX's values. Raises on
+    a value out of bounds; returns the errors and the TF32 flag it ran
+    under."""
+    import numpy as np
+    from tpucdc_torch.eval import PerceptualMetric, gmsd, ms_ssim, psnr
+    from tpucdc_torch.eval.fid import _FeatureExtractor
+    fx = np.load(FIXTURES / "flagship_384x512.npz")
+    ev = np.load(FIXTURES / "eval_384x512.npz")
+    crop = torch.from_numpy(fx["crop_u8"]).to(dev)
+    lpips = PerceptualMetric(device=dev)
+    out = {"cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}
+    for tag in ("serve", "mean"):
+        rec = torch.from_numpy(fx[f"{tag}_u8"]).to(dev)
+        for name, fn in (("psnr", psnr), ("ms_ssim", ms_ssim),
+                         ("gmsd", gmsd)):
+            got, want = fn(crop, rec), float(ev[f"{name}_{tag}"])
+            out[f"{name}_{tag}"] = got
+            check(abs(got - want) <= EVAL_BOUNDS[name],
+                  f"{name} {tag}: {got} vs JAX {want}")
+        got, want = lpips(crop, rec), float(ev[f"lpips_{tag}"])
+        out[f"lpips_{tag}"] = got
+        check(abs(got - want) <= EVAL_REL * abs(want),
+              f"lpips {tag}: {got} vs JAX {want}")
+    feats = _FeatureExtractor(device=dev)(np.stack(
+        [fx["crop_u8"], fx["serve_u8"], fx["mean_u8"]]))
+    want = ev["features"]
+    err = float(np.max(np.abs(feats - want)) / np.max(np.abs(want)))
+    out["features_rel_err"] = err
+    check(err <= EVAL_REL, f"FID features differ from JAX's by {err:.3g}")
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -290,6 +355,9 @@ def main() -> None:
     say("device", f"{card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
     REPORT["card"] = card
+    # Phase 14's metrics, first: before any runtime is built in the process
+    # (a runtime turns TF32 off process-wide), so the metrics must do it.
+    REPORT["eval_metrics_before_runtime"] = eval_metrics_check(torch, dev)
 
     # ---- 2. build ----
     t0 = time.perf_counter()
@@ -1280,6 +1348,10 @@ def main() -> None:
                        "guided": guided}
     REPORT["path_launches"] = path_launches
 
+    # ---- 14. eval & API ----
+    phase_eval_api(torch, dev, port, cfg, rt16, blob768, img768, fx,
+                   path_launches)
+
     kernels = []
     for name in ("gn_silu", "attention"):
         p = per[name]
@@ -1305,6 +1377,245 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def phase_eval_api(torch, dev, port, cfg, rt16, blob768, img768, fx,
+                   path_launches, n_images=24) -> None:
+    """Phase 14: the metrics once more, now that runtimes exist; the API
+    against the runtimes of phase 6; the eval harness over the Kodak set
+    with its launch counts; the CLI in-process against the direct calls."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    from tpucdc_torch import api
+    from tpucdc_torch.cli import main as cli
+    from tpucdc_torch.data import eval_dataset
+    from tpucdc_torch.ops import _kernels
+    from tpucdc_torch.pipelines.evaluate import (EvalOptions,
+                                                 evaluate_dataset,
+                                                 step_guidance_sweep,
+                                                 time_decode)
+    from tpucdc_torch.presets import SERVING_OVERRIDES, VR_WIDE_OVERRIDES
+
+    def seeded(seed=0):
+        return torch.Generator(dev).manual_seed(seed)
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    rep = REPORT["eval_api"] = {}
+    # (a) the metrics after the runtimes, against JAX's fixture values.
+    before = REPORT["eval_metrics_before_runtime"]
+    after = eval_metrics_check(torch, dev)
+    rep["metrics_after_runtime"] = after
+    say("eval", f"metrics vs JAX's fixture, before any runtime (cudnn TF32 "
+        f"flag {before['cudnn_allow_tf32']}) and after (flag "
+        f"{after['cudnn_allow_tf32']}): " + "; ".join(
+            f"{k} {before[k]:.6f} / {after[k]:.6f}" for k in before
+            if k != "cudnn_allow_tf32"))
+    say("eval", f"bounds: PSNR {EVAL_BOUNDS['psnr']:g} dB, MS-SSIM and GMSD "
+        f"{EVAL_BOUNDS['ms_ssim']:g} absolute, LPIPS and the features "
+        f"{EVAL_REL:g} relative")
+
+    # (b) the API: the trained flagship through load_runtime.
+    rt = api.load_runtime("flagship", checkpoint=str(WEIGHTS),
+                          overrides=SERVING_OVERRIDES)
+    check(rt.config.model == cfg.model and rt.config.sample == cfg.sample,
+          "load_runtime(SERVING_OVERRIDES) is not flagship_serving()")
+    api_u8 = rt.decompress(blob768, generator=seeded())
+    ref_u8 = rt16.decompress(blob768, generator=seeded())
+    check(np.array_equal(api_u8, ref_u8),
+          f"API decode differs from the runtime's: {lsb_gap(api_u8, ref_u8)}")
+    tables = {p: {k: fx[f"{p}_{k}"] for k in ("cdfs", "cdf_lengths",
+                                               "offsets")} for p in "zy"}
+    rt_tab = port.CodecRuntime(rt.config, rt.model, device=dev,
+                               cdf_tables=tables)
+    exported = rt_tab.export_cdf_tables()
+    check(all(np.array_equal(exported[f"{p}_{k}"], v)
+              for p, t in tables.items() for k, v in t.items()),
+          "export_cdf_tables differs from the tables it was given")
+    blob = fx["blob"].tobytes()
+    _, z_sym, _, _ = rt_tab._host_z_stage(blob)
+    _, y_sym, _, _ = rt_tab._decode_symbols(blob)
+    same = (np.array_equal(z_sym, fx["z_sym"])
+            and np.array_equal(y_sym.cpu().numpy(), fx["y_sym"]))
+    check(same, "the runtime on JAX's coder tables decodes other symbols")
+    say("api", "load_runtime('flagship', artifacts/flagship_params.npz, "
+        "SERVING_OVERRIDES) = flagship_serving(); its decode of "
+        "flagship_768x512.tpucdc (seed 0) is bit-equal to the runtime's; on "
+        "JAX's exported coder tables (cdf_tables=) it decodes JAX's 384x512 "
+        "bitstream to JAX's symbols")
+
+    # (c) the harness: the Kodak set at full width, with LPIPS.
+    ds = eval_dataset("kodak")
+    ds.images = ds.images[:n_images]
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = evaluate_dataset(rt, ds, EvalOptions(steps=5))
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    n = dict(_kernels.LAUNCHES)
+    want = {k: n_images * v for k, v in decode_launches(cfg, 5).items()}
+    agg = res["aggregate"]
+    say("eval", f"evaluate_dataset kodak ({len(ds)} images "
+        f"{ds.images[0].shape[1]}x{ds.images[0].shape[0]}, synthetic "
+        f"{ds.synthetic}, steps 5, LPIPS): {eval_s:.2f} s, launches {n} "
+        f"(want {want}); aggregate {json.dumps(agg)}")
+    check(n == want, f"eval launches {n} != {want}")
+    check(all(np.isfinite(agg[k]) for k in ("bpp", "psnr", "ms_ssim",
+                                            "gmsd", "lpips")),
+          f"non-finite aggregate {agg}")
+    per = {k: [r[k] for r in res["rows"]] for k in ("encode_s", "decode_s")}
+    rep["eval"] = {"aggregate": agg, "seconds": eval_s, "launches": n,
+                   "images": len(ds), "synthetic": ds.synthetic,
+                   "encode_s": per["encode_s"], "decode_s": per["decode_s"]}
+    say("eval", "harness decode_s per image (ms): median "
+        f"{1e3 * statistics.median(per['decode_s']):.2f}, min "
+        f"{1e3 * min(per['decode_s']):.2f}, max "
+        f"{1e3 * max(per['decode_s']):.2f}; encode_s median "
+        f"{1e3 * statistics.median(per['encode_s']):.2f}; whole eval "
+        f"{1e3 * eval_s / len(ds):.2f} ms an image ({card})")
+    path_launches["eval_kodak"] = n
+
+    # The metrics of one 512x768 pair apart: host ms a call (median of 7
+    # after a warm-up; each returns a float, so the card has finished), and
+    # the LPIPS proxy's device time (profiler) against its bound.
+    from tpucdc_torch.eval import PerceptualMetric, gmsd, ms_ssim, psnr
+    from tpucdc_torch.eval.fid import _FeatureExtractor
+    img0 = ds.images[0]
+    rec0 = rt.decompress(rt.compress(img0))
+    lpips, feats = PerceptualMetric(device=dev), _FeatureExtractor(device=dev)
+    calls = {"psnr": lambda: psnr(img0, rec0, device=dev),
+             "ms_ssim": lambda: ms_ssim(img0, rec0, device=dev),
+             "gmsd": lambda: gmsd(img0, rec0, device=dev),
+             "lpips": lambda: lpips(img0, rec0),
+             "fid_features": lambda: feats(img0[None])}
+    metric_ms = {}
+    for name, fn in calls.items():
+        fn()
+        times = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+        metric_ms[name] = statistics.median(times)
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            calls["lpips"]()
+        torch.cuda.synchronize()
+    lpips_dev = sum(float(e.self_device_time_total)
+                    for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA) / 5e3
+    h, w = img0.shape[:2]
+    flops, cin = 0, 3
+    for i, cout in enumerate((64, 128, 256, 512, 512)):
+        flops += 2 * 2 * 9 * cin * cout * (h >> i) * (w >> i)   # two images
+        cin = cout
+    lpips_bound = 1e3 * flops / PEAK_FLOPS["f32"]
+    say("eval", f"one {w}x{h} pair, host ms a call (median of 7): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in metric_ms.items()) + f"; LPIPS device "
+        f"{lpips_dev:.3f} ms against its bound {lpips_bound:.3f} ms "
+        f"({flops:.3g} FLOP in f32 without TF32) ({card})")
+    rep["metric_ms"] = metric_ms
+    rep["lpips_device_ms"] = lpips_dev
+    rep["lpips_bound_ms"] = lpips_bound
+
+    two = dataclasses.replace(ds, images=ds.images[:2])
+    t0 = time.perf_counter()
+    sweep = step_guidance_sweep(rt, two, (2, 5), (1.0, 2.0),
+                                EvalOptions(compute_lpips=False))
+    sweep_s = time.perf_counter() - t0
+    for row in sweep:
+        check(np.isfinite(row["fid"]), f"non-finite FID {row}")
+        say("eval", f"step/guidance sweep steps {row['steps']} guidance "
+            f"{row['guidance']}: PSNR {row['psnr']:.3f}, MS-SSIM "
+            f"{row['ms_ssim']:.5f}, GMSD {row['gmsd']:.5f}, FID "
+            f"{row['fid']:.4f} ({row['fid_features']})")
+    timing = time_decode(rt, rt.compress(ds.images[0]), steps=5)
+    say("eval", f"sweep of 4 points x 2 images: {sweep_s:.2f} s; "
+        f"time_decode steps 5: median {1e3 * timing['decode_s_median']:.2f} "
+        f"ms, best {1e3 * timing['decode_s_best']:.2f} ms ({card})")
+    rep["sweep"] = sweep
+    rep["time_decode"] = timing
+
+    # (d) the CLI, in-process, on the trained flagship.
+    try:
+        import PIL  # noqa: F401
+        pillow = True
+    except ImportError:
+        pillow = False
+    say("cli", f"Pillow imports on this machine: {pillow}")
+    if not pillow:
+        say("cli", "no Pillow: the CLI's two image-I/O helpers read and "
+            "write .npy here (in-process); the runtime, weights and kernels "
+            "are the same")
+        cli._read_image = lambda path: np.load(path)
+        cli._write_image = lambda path, img: np.save(path, img)
+    sets = [f"--set={k}={v}" for k, v in SERVING_OVERRIDES.items()]
+    flag = ["--preset", "flagship", *sets, "--checkpoint", str(WEIGHTS)]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        src = tmp / ("img.png" if pillow else "img.npy")
+        dst = tmp / ("out.png" if pillow else "out.npy")
+        if pillow:
+            from PIL import Image
+            Image.fromarray(img768).save(src)
+        else:
+            np.save(src, img768)
+        t0 = time.perf_counter()
+        cli.main(["compress", "--optimize-gamma", "spatial", *flag,
+                  str(src), str(tmp / "img.tpucdc")])
+        cli_blob = (tmp / "img.tpucdc").read_bytes()
+        direct = rt.compress(img768, optimize_gamma="spatial")
+        check(cli_blob == direct, "CLI compress bytes differ from "
+              "rt.compress(optimize_gamma='spatial')")
+        cli.main(["decompress", "--seed", "0", *flag,
+                  str(tmp / "img.tpucdc"), str(dst)])
+        cli_u8 = cli._read_image(dst)
+        want_u8 = rt.decompress(direct, generator=seeded())
+        check(np.array_equal(cli_u8, want_u8),
+              f"CLI decompress differs: {lsb_gap(cli_u8, want_u8)}")
+        cli.main(["eval", "--sweep", "latency", *flag,
+                  "--workdir", str(tmp / "eval")])
+        vr_flag = ["--preset", "flagship", *sets,
+                   *[f"--set={k}={v}" for k, v in VR_WIDE_OVERRIDES.items()],
+                   "--checkpoint", str(VR_WEIGHTS)]
+        rtv = api.load_runtime("flagship", checkpoint=str(VR_WEIGHTS),
+                               overrides={**SERVING_OVERRIDES,
+                                          **VR_WIDE_OVERRIDES})
+        npix = img768.shape[0] * img768.shape[1]
+        ends = [8 * len(rtv.compress(img768, quality=q)) / npix
+                for q in (0.0, 2.0)]
+        target = float(np.sqrt(ends[0] * ends[1]))
+        blob_d, q_d, bpp_d = rtv.compress_to_bpp(img768, target)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["compress", "--target-bpp", f"{target!r}", *vr_flag,
+                      str(src), str(tmp / "vr.tpucdc")])
+        row = json.loads(buf.getvalue().strip().splitlines()[-1])
+        print(buf.getvalue().strip())
+        vr_blob = (tmp / "vr.tpucdc").read_bytes()
+        say("cli", f"vr_wide --target-bpp {target:.4f} (between q0 "
+            f"{ends[0]:.4f} and q2 {ends[1]:.4f}): bpp {row['bpp']:.4f} at "
+            f"quality {row['quality']:.4f}; direct compress_to_bpp "
+            f"{bpp_d:.4f} at {q_d:.4f}")
+        check(abs(row["bpp"] - target) <= 0.03 * target,
+              f"rate control missed: {row['bpp']} for {target}")
+        check(vr_blob == blob_d, "CLI --target-bpp bytes differ from "
+              "compress_to_bpp")
+        cli_s = time.perf_counter() - t0
+    say("cli", f"compress --optimize-gamma spatial: {len(cli_blob)} B = "
+        f"rt.compress; decompress --seed 0 = rt.decompress; eval --sweep "
+        f"latency ran; {cli_s:.1f} s for the CLI part ({card})")
+    rep["cli"] = {"pillow": pillow, "bytes": len(cli_blob),
+                  "vr_target_bpp": target, "vr_row": row, "seconds": cli_s}
+    rep["seconds"] = time.perf_counter() - t_phase
+    say("eval", f"phase 14 took {rep['seconds']:.1f} s ({card})")
 
 
 if __name__ == "__main__":

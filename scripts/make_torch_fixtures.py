@@ -44,6 +44,13 @@ writes into ``tpucdc_torch/fixtures/``:
                         order (group 0 anchors, group 0 non-anchors, ...),
                         each in stream order, uint8 [8, positions, 48];
         mean_u8_<tag>   JAX ``decompress(steps=0)``.
+  eval_384x512.npz — JAX's eval metrics of the flagship fixture's decodes
+      against its crop, for the pairs (crop_u8, serve_u8) and (crop_u8,
+      mean_u8) of flagship_384x512.npz (tags serve, mean):
+        psnr_<tag>, ms_ssim_<tag>, gmsd_<tag>   ``tpucdc.eval.metrics``;
+        lpips_<tag>     ``PerceptualMetric()`` (the random-conv proxy);
+        features        ``fid._FeatureExtractor()`` of crop_u8, serve_u8
+                        and mean_u8, in that order, float32 [3, 512].
 
 Usage (from the repo root; a few minutes on a CPU host):
     python scripts/make_torch_fixtures.py
@@ -69,6 +76,8 @@ import numpy as np  # noqa: E402
 from train_rd_sweep import build_eval_config, split_eval_images  # noqa: E402
 
 from tpucdc.data import synthetic_images  # noqa: E402
+from tpucdc.eval import PerceptualMetric, gmsd, ms_ssim, psnr  # noqa: E402
+from tpucdc.eval.fid import _FeatureExtractor  # noqa: E402
 from tpucdc.entropy import read_bitstream  # noqa: E402
 from tpucdc.model import CDCModel  # noqa: E402
 from tpucdc.ops import make_schedule  # noqa: E402
@@ -135,6 +144,21 @@ def _quality_tag(q: float) -> str:
 VR_QUALITIES = (0.0, 1.0, 2.0, 0.5)
 
 
+def write_eval_fixture(crop, serve_u8, mean_u8):
+    """JAX's metrics, LPIPS proxy and FID features of the two decodes."""
+    lpips = PerceptualMetric()
+    arrays = {"features": np.asarray(
+        _FeatureExtractor()(np.stack([crop, serve_u8, mean_u8])), np.float32)}
+    for tag, rec in (("serve", serve_u8), ("mean", mean_u8)):
+        arrays[f"psnr_{tag}"] = np.float64(psnr(crop, rec))
+        arrays[f"ms_ssim_{tag}"] = np.float64(ms_ssim(crop, rec))
+        arrays[f"gmsd_{tag}"] = np.float64(gmsd(crop, rec))
+        arrays[f"lpips_{tag}"] = np.float64(lpips(crop, rec))
+    np.savez_compressed(OUT / "eval_384x512.npz", **arrays)
+    print("eval_384x512.npz: " + ", ".join(
+        f"{k} {float(v):.6f}" for k, v in arrays.items() if v.ndim == 0))
+
+
 def main():
     t0 = time.time()
     OUT.mkdir(parents=True, exist_ok=True)
@@ -167,6 +191,7 @@ def main():
     print(f"flagship_384x512.npz: {len(blob)} B blob, header v5 grid "
           f"{None if hdr.gamma_grid is None else hdr.gamma_grid.shape}, "
           f"{time.time() - t0:.1f} s")
+    write_eval_fixture(crop, serve_u8, mean_u8)
 
     img = synthetic_images(1, 512, 768, seed=7)[0]
     blob768 = rt.compress(img)

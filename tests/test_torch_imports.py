@@ -31,7 +31,19 @@ print("ok", len({modules!r}))
 """
 
 
+# The eval and user-facing layers, which must stay among the modules above.
+EVAL_AND_API = {"tpucdc_torch.api", "tpucdc_torch.__main__",
+                "tpucdc_torch.cli", "tpucdc_torch.cli.main",
+                "tpucdc_torch.data", "tpucdc_torch.data.datasets",
+                "tpucdc_torch.eval", "tpucdc_torch.eval.metrics",
+                "tpucdc_torch.eval.lpips", "tpucdc_torch.eval.fid",
+                "tpucdc_torch.eval.harness",
+                "tpucdc_torch.pipelines.evaluate",
+                "tpucdc_torch.utils.logging", "tpucdc_torch.utils.profiling"}
+
+
 def test_port_imports_without_jax_or_tpucdc():
+    assert EVAL_AND_API <= set(MODULES)
     out = subprocess.run(
         [sys.executable, "-c", _BLOCK.format(modules=MODULES)],
         cwd=ROOT, capture_output=True, text=True, timeout=120)

@@ -5,11 +5,14 @@ with the in-band γ search and rate control) and ``CodecRuntime.decompress``
 (bitstream → uint8 image) for every entropy model, single-rate or
 variable-rate, with classifier-free guidance, DDIM (plain or block-cached) or
 DDPM sampling; ``decompress_tiled`` for large images; and the batch
-forms ``compress_many`` / ``decompress_many``. Fused GroupNorm+SiLU and
-attention are hand-written CUDA kernels. The package imports PyTorch and
-never JAX or the tpucdc package. Entry points run on the card unless the
-caller passes ``device="cpu"``, where every kernel's plain PyTorch version
-runs instead.
+forms ``compress_many`` / ``decompress_many``. It evaluates (``eval``:
+PSNR, MS-SSIM, GMSD, the LPIPS and FID proxies, the R-D, latency and
+perceptual sweeps) and serves through ``api.load_runtime`` and
+``python -m tpucdc_torch compress|decompress|eval|rd-sweep``. Fused
+GroupNorm+SiLU and attention are hand-written CUDA kernels. The package
+imports PyTorch and never JAX or the tpucdc package. Entry points run on the
+card unless the caller passes ``device="cpu"``, where every kernel's plain
+PyTorch version runs instead.
 """
 
 from tpucdc_torch.config import Config, ModelConfig, SampleConfig

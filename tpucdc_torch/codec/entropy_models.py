@@ -122,13 +122,15 @@ class GaussianConditional:
 
     def cdf_tables(self) -> dict:
         """One quantized CDF row per table scale, symbols centered at 0."""
-        from scipy.stats import norm
+        # ndtr and ndtri are what scipy.stats.norm's cdf and ppf compute,
+        # without the seconds that importing scipy.stats takes.
+        from scipy.special import ndtr, ndtri
         rows, offsets = [], []
-        tail_q = float(norm.ppf(1.0 - self.tail_mass / 2.0))
+        tail_q = float(ndtri(1.0 - self.tail_mass / 2.0))
         for s in self.scale_table:
             half = max(int(np.ceil(s * tail_q)), 1)
             grid = np.arange(-half, half + 1, dtype=np.float64)
-            pmf = (norm.cdf((grid + 0.5) / s) - norm.cdf((grid - 0.5) / s))
+            pmf = ndtr((grid + 0.5) / s) - ndtr((grid - 0.5) / s)
             rows.append(pmf_to_quantized_cdf(pmf, self.tail_mass))
             offsets.append(-half)
         cdfs, lengths = pack_cdf_rows(rows)

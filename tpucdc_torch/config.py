@@ -3,12 +3,15 @@
 The codec, conditioning and UNet configs live beside their modules in the
 JAX package; the port keeps them all here. Of the training settings only the
 ones a preset names are here; the rest wait for the training slice.
+``apply_overrides`` is the CLI's ``--set a.b.c=value``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import os
+import tempfile
+from typing import Any, Optional
 
 
 CONTEXTS = ("hyperprior", "checkerboard", "channel-ar", "space-channel")
@@ -184,6 +187,59 @@ class Config:
     model: ModelConfig = ModelConfig()
     train: TrainConfig = TrainConfig()
     sample: SampleConfig = SampleConfig()
+    # Where the CLI's eval verbs write metrics.jsonl without --workdir: a
+    # "tpucdc" directory in the temporary directory (TMPDIR).
+    workdir: str = os.path.join(tempfile.gettempdir(), "tpucdc")
 
     def validated(self) -> "Config":
         return dataclasses.replace(self, model=self.model.validated())
+
+
+def apply_overrides(cfg: Any, overrides: dict[str, str]) -> Any:
+    """Apply ``{"sample.steps": "5", ...}`` dot-overrides to a dataclass tree."""
+    for key, raw in overrides.items():
+        cfg = _set_path(cfg, key.split("."), raw)
+    return cfg
+
+
+def _set_path(node, parts, raw):
+    field_name = parts[0]
+    if not dataclasses.is_dataclass(node):
+        raise TypeError(f"cannot override into non-dataclass {type(node)}")
+    fields = {f.name for f in dataclasses.fields(node)}
+    if field_name not in fields:
+        raise KeyError(
+            f"no config field {field_name!r} on {type(node).__name__}")
+    current = getattr(node, field_name)
+    if len(parts) > 1:
+        new_val = _set_path(current, parts[1:], raw)
+    else:
+        new_val = _coerce(raw, current)
+    return dataclasses.replace(node, **{field_name: new_val})
+
+
+def _coerce(raw: str, current):
+    """``raw`` as the type of the value it replaces; a tuple is
+    comma-separated, and an empty tuple default is inferred per element."""
+    if isinstance(current, bool):
+        return raw.lower() in ("1", "true", "yes")
+    if isinstance(current, int):
+        return int(raw)
+    if isinstance(current, float):
+        return float(raw)
+    if isinstance(current, tuple):
+        if current:
+            elem_t = type(current[0])
+            return tuple(elem_t(v) for v in raw.split(",") if v)
+        return tuple(_coerce_scalar(v) for v in raw.split(",") if v)
+    return raw
+
+
+def _coerce_scalar(v: str):
+    """int if it parses, else float, else the string."""
+    for t in (int, float):
+        try:
+            return t(v)
+        except ValueError:
+            continue
+    return v

@@ -44,6 +44,8 @@ desyncs rANS, and a bf16 convolution cannot reproduce another side's bf16
 rounding. g_a, h_a and the device stage run under the runtime's ``policy``
 (bf16 compute by default, as JAX serves).
 
+The coder tables are built from the model, or injected (``cdf_tables=``)
+from a sidecar that ``save_cdf_tables`` wrote, in the JAX package's format.
 The analytic rate estimate (``estimate_bpp``, ``probe="estimate"``) and the
 multi-card branch of the tiled decode (``mesh=``) raise NotImplementedError.
 """
@@ -87,6 +89,10 @@ def to_model_range(img_u8: np.ndarray) -> np.ndarray:
     return img_u8.astype(np.float32) / 127.5 - 1.0
 
 
+def from_model_range(x: np.ndarray) -> np.ndarray:
+    return np.clip((x + 1.0) * 127.5 + 0.5, 0, 255).astype(np.uint8)
+
+
 def _to_uint8(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp((x + 1.0) * 127.5 + 0.5, 0, 255).to(torch.uint8)
 
@@ -107,7 +113,12 @@ class CodecRuntime:
     GAMMA_TILE = 128
 
     def __init__(self, config: Config, model: CDCModel, device="cuda",
-                 policy: Policy = DEFAULT_POLICY):
+                 policy: Policy = DEFAULT_POLICY,
+                 cdf_tables: Optional[dict] = None):
+        """``cdf_tables`` ({"z": {...}, "y": {...}}, as ``load_cdf_tables``
+        returns) injects the coder tables in place of building them from the
+        model, so that a decode does not rest on the float table build being
+        reproducible where the bitstream was made."""
         self.config = config.validated()
         self.device = resolve_device(device)
         if self.device.type == "cuda":
@@ -122,10 +133,16 @@ class CodecRuntime:
         self.schedule = make_schedule(self.config.model.schedule.kind,
                                       self.config.model.schedule.num_steps)
         self.gaussian = GaussianConditional()
+        if cdf_tables is not None:
+            self._z_tables = dict(cdf_tables["z"])
+            self._y_tables = dict(cdf_tables["y"])
+        else:
+            self._z_tables = model.factorized_tables()
+            self._y_tables = self.gaussian.cdf_tables()
         # Coding runs on the C++ coder only; RansCodec raises if it does
         # not build.
-        self.z_codec = RansCodec(model.factorized_tables(), use_native=True)
-        self.y_codec = RansCodec(self.gaussian.cdf_tables(), use_native=True)
+        self.z_codec = RansCodec(self._z_tables, use_native=True)
+        self.y_codec = RansCodec(self._y_tables, use_native=True)
         self._z_medians = model.z_medians().to(self.device)
         self._context = cf.context
         self._groups = cf.context_groups
@@ -138,6 +155,27 @@ class CodecRuntime:
             # interpolates on the host.
             self._gain_tables_np = tuple(
                 t.cpu().numpy() for t in self.model.gain_tables())
+
+    # ---- the coder-table sidecar ----
+
+    def export_cdf_tables(self) -> dict:
+        """The quantized coder tables as numpy arrays, keyed z_*/y_*."""
+        out = {}
+        for prefix, t in (("z", self._z_tables), ("y", self._y_tables)):
+            for k, v in t.items():
+                out[f"{prefix}_{k}"] = np.asarray(v)
+        return out
+
+    def save_cdf_tables(self, path) -> None:
+        """Write the tables to an .npz that ``load_cdf_tables`` reads, in the
+        JAX package's format: either package reads the other's file."""
+        np.savez(path, **self.export_cdf_tables())
+
+    @staticmethod
+    def load_cdf_tables(path) -> dict:
+        with np.load(path) as d:
+            return {"z": {k[2:]: d[k] for k in d.files if k.startswith("z_")},
+                    "y": {k[2:]: d[k] for k in d.files if k.startswith("y_")}}
 
     # ---- small pieces ----
 

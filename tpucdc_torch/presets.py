@@ -96,6 +96,32 @@ def flagship_serving() -> Config:
     ).validated()
 
 
+# The dot-overrides that turn ``flagship()`` into ``flagship_serving()``'s
+# model and sample blocks: how the CLI reaches the trained flagship
+# (``--preset flagship --set k=v ...``), as the JAX package's CLI would.
+SERVING_OVERRIDES: dict[str, str] = {
+    "model.cond.feature_channels": "32",
+    "model.cond.token_dim": "96",
+    "model.cond.hidden_channels": "96",
+    "model.unet.base_channels": "32",
+    "model.unet.channel_mult": "1,2,3",
+    "model.unet.attn_levels": "2",
+    "model.unet.groups": "16",
+    "model.prediction": "residual",
+    "sample.steps": "5",
+    "sample.truncate_frac": "0.15",
+    "sample.blend_gamma": "0.5",
+}
+
+# The three codec overrides that, on top of SERVING_OVERRIDES, give
+# ``vr_wide_serving()``'s model.
+VR_WIDE_OVERRIDES: dict[str, str] = {
+    "model.codec.context": "space-channel",
+    "model.codec.context_groups": "4",
+    "model.codec.num_qualities": "3",
+}
+
+
 def vr_wide_serving() -> Config:
     """The variable-rate model of ``artifacts/vr.json``.
 

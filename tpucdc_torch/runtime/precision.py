@@ -6,6 +6,7 @@ statistics stay in f32; convolutions and matmuls run in the compute dtype.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -65,3 +66,26 @@ def pin_numerics() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.benchmark = False
     torch.backends.cudnn.deterministic = True
+
+
+@contextlib.contextmanager
+def exact_f32():
+    """TF32 off for convolutions and matmuls inside the block, whatever the
+    process flags are, and the flags as they were after it.
+
+    PyTorch lets cuDNN run f32 convolutions in TF32 by default
+    (``torch.backends.cudnn.allow_tf32``); ``pin_numerics`` turns that off
+    only once a runtime is built on the card. The eval metrics use this
+    instead, so that a metric computed before any runtime exists is as exact
+    as one computed after: their E[x²]−μ² moments cancel, which TF32's ten
+    mantissa bits do not survive.
+    """
+    conv = torch.backends.cudnn.allow_tf32
+    matmul = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv
+        torch.backends.cuda.matmul.allow_tf32 = matmul
