@@ -124,13 +124,57 @@ in order; any failure raises, exits non-zero and prints no result line:
                 ``compress --target-bpp`` lands within 3 % of the target
                 with ``compress_to_bpp``'s bytes. Where Pillow is absent the
                 CLI's two image-I/O helpers read and write .npy (printed).
+ 15. train    — the flagship recipe (scripts/r4d_queue.sh: the served
+                flagship's model, t-low 0.35/0.5, λ 128, distortion "both",
+                LPIPS 15, batch 16, crop 192, K = 16). (a) Both kernels'
+                gradients (autograd.Functions whose backward is PyTorch
+                operations) against autograd through their plain versions,
+                in bf16 and f32, at every shape a recipe step gives them
+                (found by one step, on the attention block's head views and
+                at batch 1): 2-norm within 1e-5 of the plain gradient's in
+                f32, 2e-2 in bf16. (b) The trained flagship under
+                F32_POLICY with TF32 off, at batch 2 and crop 192 with JAX's
+                draws, against fixtures/flagship_train_step.npz: the loss
+                and every metric within 1e-4 relative; every stored
+                gradient, and every parameter's gradient norm, within
+                1e-3·‖g_JAX‖ + 1e-6 (f32 sums in cuDNN's order, over 398
+                parameters and a 20-layer chain, against XLA:CPU's). (c) One
+                recipe train step launches 21 GN+SiLU and 12 attention
+                kernels (the forward: one decode's 93 / 60 less four UNet
+                calls; the backward launches none), derived and asserted.
+                (d) The recipe through ``python -m tpucdc_torch train``
+                in-process, from a fresh initialisation on ``kodak()``,
+                warmup shortened, 6 K-chunks (RECIPE_CHUNKS): steps a second
+                (the run's own log), peak device memory, the logged loss of
+                the first and the last chunk (the last must be lower), and
+                the loss less its aux term on one fixed batch with fixed
+                draws at the run's initialisation and at its end (it must
+                fall: the aux term trains the quantiles alone); a resume
+                from the mid-run checkpoint (the same batches, the
+                parameters within 1e-3 relative of the uninterrupted run's;
+                whether they are bit-equal is printed), whose last four
+                steps run under the profiler for the device's busy share;
+                ``load_runtime`` on the run directory serves the EMA
+                weights with an exact round trip. Each
+                kernel's forward and backward device time a step beside its
+                bound and autograd through ``F.group_norm``+``F.silu`` and
+                through SDPA. (e) ``estimate_bpp`` against the bytes of
+                ``compress`` for the flagship and for ``vr_wide`` at
+                qualities 0, 1, 2 (printed; a sanity bound of 30 %: the
+                estimate leaves out rANS's escape coding, and reads about
+                a fifth high at quality 2 in the JAX package too),
+                ``compress_to_bpp(..., probe="estimate")`` at phase 14's
+                target within 15 % (the JAX package's bound), beside
+                ``probe="encode"``; one estimate probe's time against one
+                encode probe's.
 
 The kernel checks of phase 3 also cover every shape these paths give the two
 kernels (batch 2, 6 and 48; head widths 48 and 64; the 384×512 fixture plain
 and guided; the variable-rate model), found by one step of each. The last
 three lines are the card's name and power limit, the ``kernels`` JSON line,
 and ``{"ok": true, "device": {...}}``. Details also go to
-chiprun_out/chip_smoke.json.
+chiprun_out/chip_smoke.json. Phases 14 and 15 run after phase 13, each with
+its counts set to 0 just before the run it reads.
 
 Usage: python3 chip_smoke.py
 """
@@ -140,6 +184,7 @@ from __future__ import annotations
 import collections
 import copy
 import dataclasses
+import functools
 import importlib
 import json
 import pathlib
@@ -292,6 +337,26 @@ def seeded_image(h: int, w: int, seed: int):
     img += 128 + rng.normal(0, 3, img.shape)
     return np.clip(img, 0, 255).astype(np.uint8)
 
+
+# Phase 15: kernel gradients against autograd of the plain versions (relative
+# 2-norm), and the training step against JAX's fixture (see the docstring).
+GRAD_TOL = {"f32": 1e-5, "bf16": 2e-2}
+TRAIN_METRIC_REL = 1e-4
+TRAIN_GRAD_REL, TRAIN_GRAD_ABS = 1e-3, 1e-6
+RECIPE = {"model.t_low_frac": "0.35", "model.t_low_prob": "0.5",
+          "train.rd_lambda": "128", "train.batch_size": "16",
+          "train.crop_size": "192", "train.distortion": "both",
+          "train.lpips_weight": "15", "train.steps_per_dispatch": "16"}
+RECIPE_CHUNKS = 6
+PROFILED_STEPS = 4
+# probe="estimate" against its target: the JAX package's own bound
+# (tests/integration/test_continuous_rate.py). The analytic rate against the
+# coder's bytes is a sanity bound only: the estimate is the entropy models'
+# rate without rANS's escape coding and table quantisation, and at quality 2
+# of vr_wide it reads about a fifth above the coder in the JAX package too
+# (the CPU tests hold the port's estimate to JAX's within 1e-5).
+RATE_EST_REL = 0.15
+RATE_GAP_SANITY = 0.3
 
 # Phase 14 bounds against JAX's eval fixture (fixtures/eval_384x512.npz).
 EVAL_BOUNDS = {"psnr": 1e-4, "ms_ssim": 1e-5, "gmsd": 1e-5}   # absolute
@@ -1352,6 +1417,12 @@ def main() -> None:
     phase_eval_api(torch, dev, port, cfg, rt16, blob768, img768, fx,
                    path_launches)
 
+    # ---- 15. train ----
+    trained = phase_train(torch, dev, port, state, img768, discover,
+                          device_us, rt16, rtv16,
+                          REPORT["eval_api"]["cli"]["vr_target_bpp"])
+    path_launches["train_step"] = trained
+
     kernels = []
     for name in ("gn_silu", "attention"):
         p = per[name]
@@ -1616,6 +1687,481 @@ def phase_eval_api(torch, dev, port, cfg, rt16, blob768, img768, fx,
                   "vr_target_bpp": target, "vr_row": row, "seconds": cli_s}
     rep["seconds"] = time.perf_counter() - t_phase
     say("eval", f"phase 14 took {rep['seconds']:.1f} s ({card})")
+
+
+def _rel(got, want) -> float:
+    """‖got − want‖ / ‖want‖ in f64."""
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm().clamp_min(1e-300))
+
+
+def phase_train(torch, dev, port, state, img768, discover, device_us,
+                rt16, rtv16, vr_target) -> dict:
+    """Phase 15: the training path (see the module docstring). Returns
+    the launches of one recipe step, by kernel."""
+    import tempfile
+
+    import numpy as np
+    import torch.nn.functional as F
+    from tpucdc_torch import api
+    from tpucdc_torch.cli import main as cli
+    from tpucdc_torch.data import kodak, train_crop_iterator
+    from tpucdc_torch.eval.lpips import PerceptualMetric
+    from tpucdc_torch.ops import _kernels
+    from tpucdc_torch.pipelines import codec_runtime, train
+    from tpucdc_torch.presets import SERVING_OVERRIDES
+    from tpucdc_torch.runtime import pin_numerics, set_policy
+    from tpucdc_torch.utils.checkpoint import CheckpointManager
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    attn_mod = importlib.import_module("tpucdc_torch.ops.attention")
+    groupnorm = importlib.import_module("tpucdc_torch.ops.groupnorm")
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    rep = REPORT["train"] = {}
+    times = rep["seconds_by_part"] = {}
+    recipe = {**SERVING_OVERRIDES, **RECIPE}
+    rcfg = api.build_config("flagship", recipe)
+    tc = rcfg.train
+    gen = torch.Generator(dev).manual_seed(5)
+
+    # One recipe step on a fresh initialisation (BF16_POLICY, as JAX
+    # trains), with its launches counted: (c), and the shapes for (a).
+    step_fn = train.make_train_step(rcfg, train.schedule_tables(rcfg, dev))
+
+    def recipe_step(state_, batch_u8, seed):
+        return step_fn(state_, batch_u8,
+                       torch.Generator(dev).manual_seed(seed))
+
+    pin_numerics()
+    _, rstate = train.create_state(rcfg, seed=0, device=dev)
+    data_imgs = kodak().images
+    batch16 = torch.from_numpy(next(train_crop_iterator(
+        data_imgs, tc.batch_size, tc.crop_size, as_uint8=True))).to(dev)
+    recipe_step(rstate, batch16, 0)                 # warm-up
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    recipe_step(rstate, batch16, 1)
+    torch.cuda.synchronize()
+    step_launches = dict(_kernels.LAUNCHES)
+    want = decode_launches(rcfg, 1)
+    say("train", f"one recipe train step (batch {tc.batch_size}, crop "
+        f"{tc.crop_size}, BF16_POLICY): launches {step_launches} (derived "
+        f"{want}: the forward's; the backward launches no kernel)")
+    check(step_launches == want == {"gn_silu": 21, "attention": 12},
+          f"train step launches {step_launches} != {want}")
+    rep["step_launches"] = step_launches
+
+    # (a) kernel gradients at every shape of a recipe step and of the
+    # fixture's batch 2, on head views where the block makes them; batch 1.
+    seen = discover(lambda: recipe_step(rstate, batch16, 2))
+    seen2 = discover(lambda: recipe_step(rstate, batch16[:2], 3))
+    gn_shapes = sorted(set(seen["gn_silu"]) | set(seen2["gn_silu"]))
+    gn_shapes += [((1,) + s[1:], g) for s, g in gn_shapes if s[0] != 1]
+    at_shapes = sorted(set(seen["attention"]) | set(seen2["attention"]))
+    at_shapes += [((1,) + q[1:], (1,) + k[1:], v) for q, k, v in at_shapes
+                  if q[0] != 1]
+    worst = {"gn_silu": {}, "attention": {}}
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    for dn, dt in dtypes.items():
+        for shape, groups in dict.fromkeys(gn_shapes):
+            x = torch.randn(shape, generator=gen, device=dev).to(dt)
+            g = torch.randn(shape[-1], generator=gen, device=dev)
+            b = torch.randn(shape[-1], generator=gen, device=dev)
+            x.requires_grad_(True), g.requires_grad_(True)
+            b.requires_grad_(True)
+            out = groupnorm.group_norm_silu(x, g, b, groups)
+            check(out.grad_fn is not None, "GN+SiLU output has no grad_fn")
+            dout = torch.randn(shape, generator=gen, device=dev).to(dt)
+            got = torch.autograd.grad(out, (x, g, b), dout)
+            ref = torch.autograd.grad(groupnorm.gn_reference(
+                x, g, b, groups, 1e-5, True), (x, g, b), dout)
+            err = max(_rel(a, r) for a, r in zip(got, ref))
+            worst["gn_silu"][dn] = max(worst["gn_silu"].get(dn, 0.0), err)
+            check(err <= GRAD_TOL[dn],
+                  f"GN+SiLU gradient {shape}/{groups} {dn}: {err}")
+        for qs, ks, views in dict.fromkeys(at_shapes):
+            def make(shp):
+                b_, h_, n_, d_ = shp
+                if views:
+                    t = torch.randn((b_, n_, h_ * d_), generator=gen,
+                                    device=dev).to(dt).requires_grad_(True)
+                    return t, t.reshape(b_, n_, h_, d_).transpose(1, 2)
+                t = torch.randn(shp, generator=gen, device=dev).to(dt)
+                return t.requires_grad_(True), t
+            (q0, q), (k0, k), (v0, v) = make(qs), make(ks), make(ks)
+            out = attn_mod.attention(q, k, v)
+            check(out.grad_fn is not None, "attention output has no grad_fn")
+            dout = torch.randn(out.shape, generator=gen, device=dev).to(dt)
+            got = torch.autograd.grad(out, (q0, k0, v0), dout)
+            ref = torch.autograd.grad(attn_mod.attention_reference(q, k, v),
+                                      (q0, k0, v0), dout)
+            err = max(_rel(a, r) for a, r in zip(got, ref))
+            worst["attention"][dn] = max(worst["attention"].get(dn, 0.0),
+                                         err)
+            check(err <= GRAD_TOL[dn],
+                  f"attention gradient {qs} {ks} {dn}: {err}")
+    say("train", f"kernel gradients vs autograd of the plain versions at "
+        f"{len(set(gn_shapes))} GN+SiLU and {len(set(at_shapes))} attention "
+        f"shapes (recipe batch 16, fixture batch 2, batch 1; head views as "
+        f"the block makes them), worst relative 2-norm {worst} (bounds "
+        f"{GRAD_TOL})")
+    rep["grad_worst"] = worst
+    times["c_a_launches_gradients"] = time.perf_counter() - t_phase
+    t_part = time.perf_counter()
+    rep["grad_shapes"] = {"gn_silu": [list(s) + [g] for s, g in gn_shapes],
+                          "attention": [[list(q), list(k), v]
+                                        for q, k, v in at_shapes]}
+
+    # Forward and backward device time a step, at the recipe's shapes
+    # (bf16), beside the bounds and autograd through the library calls. One
+    # profiler session a row runs every shape as often as a step does.
+    def device_ms(calls):
+        """``device_us`` of every kernel one pass over ``calls`` launches,
+        in ms. The profiler has come back empty once in many sessions (a
+        lost CUPTI buffer): one empty reading is taken again, a second one
+        fails."""
+        def run():
+            for fn in calls:
+                fn()
+        try:
+            return 1e-3 * device_us(run, None, iters=5)
+        except AssertionError:
+            say("train", "the profiler saw no kernel; measuring again")
+            return 1e-3 * device_us(run, None, iters=5)
+
+    calls = {"gn_silu": collections.defaultdict(list),
+             "attention": collections.defaultdict(list)}
+    bound_ms = collections.Counter()
+    for (shape, groups), n in seen["gn_silu"].items():
+        x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        g = torch.randn(shape[-1], generator=gen, device=dev)
+        b = torch.randn(shape[-1], generator=gen, device=dev)
+        dout = torch.randn_like(x)
+        xn = x.reshape(shape[0], -1, shape[-1]).transpose(1, 2).contiguous()
+        xn.requires_grad_(True)
+        gl, bl = g.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        lib = F.silu(F.group_norm(xn, groups, gl.to(x.dtype), bl.to(x.dtype),
+                                  1e-5))
+        row = calls["gn_silu"]
+        row["fwd_ms"] += [functools.partial(
+            groupnorm.gn_silu_cuda, x, g, b, groups)] * n
+        row["bwd_ms"] += [functools.partial(
+            groupnorm.gn_silu_backward, dout, x, g, b, groups, 1e-5)] * n
+        row["bwd_library_ms"] += [functools.partial(
+            torch.autograd.grad, lib, (xn, gl, bl), torch.randn_like(lib),
+            retain_graph=True)] * n
+        # dx from x and dout, dγ and dβ: each byte once.
+        bound_ms["gn_silu"] += n * 1e3 * (
+            3 * x.numel() * 2 + 4 * shape[-1] * 4) / HBM_BYTES_S
+    for (qs, ks, views), n in seen["attention"].items():
+        b_, h_, nq, d = qs
+        nk = ks[2]
+        q, k, v = (torch.randn(s_, generator=gen, device=dev).to(
+            torch.bfloat16) for s_ in (qs, ks, ks))
+        dout = torch.randn_like(q)
+        ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
+        lib = F.scaled_dot_product_attention(ql, kl, vl)
+        row = calls["attention"]
+        row["fwd_ms"] += [functools.partial(
+            attn_mod.attention_cuda, q, k, v, d ** -0.5)] * n
+        row["bwd_ms"] += [functools.partial(
+            attn_mod.attention_backward, dout, q, k, v, d ** -0.5)] * n
+        row["bwd_library_ms"] += [functools.partial(
+            torch.autograd.grad, lib, (ql, kl, vl), dout,
+            retain_graph=True)] * n
+        flops = 10 * b_ * h_ * nq * nk * d
+        nbytes = (4 * q.numel() + 3 * k.numel()) * 2
+        bound_ms["attention"] += n * 1e3 * max(flops / PEAK_FLOPS["bf16"],
+                                               nbytes / HBM_BYTES_S)
+    per_step = {name: {**{key: device_ms(fns) for key, fns in rows.items()},
+                       "bwd_bound_ms": bound_ms[name]}
+                for name, rows in calls.items()}
+    del calls
+    times["kernel_ms"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    for name, row in per_step.items():
+        say("train", f"{name} a recipe step ({step_launches[name]} launches, "
+            f"bf16, device ms): forward {row['fwd_ms']:.4f}, backward "
+            f"{row['bwd_ms']:.4f} (bound {row['bwd_bound_ms']:.4f}, autograd "
+            f"through the library call {row['bwd_library_ms']:.4f}) ({card})")
+    rep["kernel_ms_per_step"] = {k_: dict(v_) for k_, v_ in per_step.items()}
+
+    # (b) the trained flagship against JAX's training-step fixture.
+    fx = np.load(FIXTURES / "flagship_train_step.npz")
+    fmodel = port.CDCModel(rcfg.model)
+    fmodel.load_state_dict(state, strict=True)
+    fmodel.to(dev)
+    set_policy(fmodel, port.F32_POLICY)
+    pin_numerics()
+    draws = {k[5:]: torch.from_numpy(fx[k]).to(dev) for k in fx.files
+             if k.startswith("draw_")}
+    fbatch = torch.from_numpy(fx["batch_u8"]).to(dev).to(torch.float32) \
+        * (1.0 / 127.5) - 1.0
+    loss, metrics = train.loss_fn(
+        fmodel, fbatch, train.schedule_tables(rcfg, dev), tc.rd_lambda,
+        distortion=tc.distortion, lpips_weight=tc.lpips_weight,
+        lpips_fn=PerceptualMetric(device=dev).distance, draws=draws)
+    loss.backward()
+    metric_err = {}
+    for key in (k[7:] for k in fx.files if k.startswith("metric_")):
+        want_v = float(fx[f"metric_{key}"])
+        metric_err[key] = abs(float(metrics[key].detach()) - want_v) / abs(
+            want_v)
+    check(set(metric_err) == set(metrics), "metric keys differ from JAX's")
+    grads = {n: p.grad for n, p in fmodel.named_parameters()}
+    norm_ratio, full_ratio = [], []
+    for n, want_norm in zip(fx["grad_names"], fx["grad_norms"]):
+        got_norm = float(grads[str(n)].double().norm())
+        norm_ratio.append((abs(got_norm - want_norm)
+                           / (TRAIN_GRAD_REL * want_norm + TRAIN_GRAD_ABS),
+                           str(n)))
+    for key in (k for k in fx.files if k.startswith("grad__")):
+        want_g = torch.from_numpy(fx[key]).to(dev).double()
+        got_g = grads[key[6:]].double()
+        full_ratio.append((float((got_g - want_g).norm()) / (
+            TRAIN_GRAD_REL * float(want_g.norm()) + TRAIN_GRAD_ABS), key[6:]))
+    worst_norm, worst_full = max(norm_ratio), max(full_ratio)
+    say("train", f"flagship training step vs JAX's fixture (F32_POLICY, TF32 "
+        f"off, batch 2, crop 192, JAX's draws): loss "
+        f"{float(loss.detach()):.6f} (JAX {float(fx['metric_loss']):.6f}); "
+        f"largest metric error {max(metric_err.values()):.3g} relative "
+        f"({max(metric_err, key=metric_err.get)}; bound "
+        f"{TRAIN_METRIC_REL:g}); gradient norms of {len(norm_ratio)} "
+        f"parameters, worst at {worst_norm[0]:.3g} of the bound "
+        f"({worst_norm[1]}); {len(full_ratio)} full gradients, worst at "
+        f"{worst_full[0]:.3g} of the bound ({worst_full[1]}); bound "
+        f"{TRAIN_GRAD_REL:g}·‖g_JAX‖ + {TRAIN_GRAD_ABS:g}")
+    check(max(metric_err.values()) <= TRAIN_METRIC_REL,
+          f"training metrics differ from JAX's: {metric_err}")
+    check(worst_norm[0] <= 1 and worst_full[0] <= 1,
+          f"gradients differ from JAX's: {worst_norm} {worst_full}")
+    rep["fixture"] = {"metric_rel_err": metric_err,
+                      "grad_norm_worst": worst_norm,
+                      "grad_full_worst": worst_full}
+    del fmodel, grads, loss, metrics
+    times["b_fixture"] = time.perf_counter() - t_part
+
+    # (d) the recipe through the CLI, in-process, from a fresh init.
+    t_d = time.perf_counter()
+    k = tc.steps_per_dispatch
+    n_steps = RECIPE_CHUNKS * k
+    run_overrides = {**recipe, "train.warmup_steps": str(2 * k),
+                     "train.steps": str(n_steps), "train.log_every": "1",
+                     "train.checkpoint_every": str(n_steps // 2)}
+    run_cfg = api.build_config("flagship", run_overrides)
+    sets = [f"--set={key}={val}" for key, val in run_overrides.items()]
+    lpips_fn = PerceptualMetric(device=dev).distance
+    tables = train.schedule_tables(run_cfg, dev)
+    fixed = torch.from_numpy(next(train_crop_iterator(
+        data_imgs, tc.batch_size, tc.crop_size, seed=99))).to(dev)
+
+    def main_loss(model) -> float:
+        """The loss less its aux term (rate and weighted distortion) on a
+        fixed batch with fixed draws, without gradients."""
+        with torch.no_grad():
+            loss, m = train.loss_fn(
+                model, fixed, tables, run_cfg.train.rd_lambda,
+                distortion=run_cfg.train.distortion,
+                lpips_weight=run_cfg.train.lpips_weight, lpips_fn=lpips_fn,
+                generator=torch.Generator(dev).manual_seed(11))
+        return float(loss - m["aux"])
+
+    init_model, _ = train.create_state(run_cfg, seed=run_cfg.train.seed,
+                                       device=dev)
+    loss_init = main_loss(init_model)
+    times["d_setup"] = time.perf_counter() - t_d
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        cli.main(["train", "--preset", "flagship", *sets, "--steps",
+                  str(n_steps), "--workdir", str(tmp)])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        run = api.run_dir(tmp, rcfg)
+        rows = [json.loads(line) for line in
+                (run / "logs" / "metrics.jsonl").read_text().splitlines()]
+        losses = [m["loss"] for m in rows]
+        main_logged = [m["loss"] - m["aux"] for m in rows]
+        sps = [m["steps_per_sec"] for m in rows[1:]]
+        chunk_s = k / statistics.median(sps)
+        mngr = CheckpointManager(run / "ckpt")
+        final = mngr.read(n_steps)["params"]
+        init_model.load_state_dict(final, strict=True)
+        loss_end = main_loss(init_model)
+        del init_model
+        say("train", f"CLI train {n_steps} steps ({RECIPE_CHUNKS} chunks of "
+            f"{k}) in {run_s:.1f} s: {statistics.median(sps):.2f} steps a "
+            f"second (median over chunks 2..{RECIPE_CHUNKS} of the run's log; "
+            f"a chunk {chunk_s:.2f} s; {n_steps * tc.batch_size / run_s:.1f} "
+            f"images a second over the whole run); peak device memory "
+            f"{peak / 2 ** 30:.2f} GiB; logged loss of the first chunk "
+            f"{losses[0]:.4f}, of the last {losses[-1]:.4f} (less aux "
+            f"{main_logged[0]:.4f}, {main_logged[-1]:.4f}); loss less aux "
+            f"on a fixed batch and fixed draws: {loss_init:.4f} at the "
+            f"initialisation, {loss_end:.4f} at step {n_steps} ({card})")
+        check(len(rows) == RECIPE_CHUNKS and all(np.isfinite(losses)),
+              f"logged rows {len(rows)} != chunks {RECIPE_CHUNKS}")
+        check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+        check(loss_end < loss_init, f"the loss less aux did not fall: "
+              f"{loss_init} -> {loss_end}")
+        # Resume from the mid-run checkpoint: the batches, then the params;
+        # the resumed run's last chunk runs under the profiler.
+        check(mngr.steps() == [n_steps // 2, n_steps],
+              f"checkpoints {mngr.steps()}")
+        times["d_cli"] = run_s
+        times["d_checks"] = time.perf_counter() - t0 - run_s
+        t_part = time.perf_counter()
+        plain = train_crop_iterator(data_imgs, tc.batch_size, tc.crop_size,
+                                    as_uint8=True)
+        for _ in range(n_steps // 2):
+            next(plain)
+        resumed = train_crop_iterator(data_imgs, tc.batch_size,
+                                      tc.crop_size, as_uint8=True,
+                                      start=n_steps // 2)
+        same_batches = all(np.array_equal(next(plain), next(resumed))
+                           for _ in range(2))
+        check(same_batches, "the resumed batches differ")
+        _, fresh = train.create_state(run_cfg, seed=1, device=dev)
+        mngr.restore(fresh, step=n_steps // 2)
+        resumed = train_crop_iterator(data_imgs, tc.batch_size,
+                                      tc.crop_size, as_uint8=True,
+                                      start=n_steps // 2)
+        train.fit(run_cfg, resumed, start_state=fresh,
+                  num_steps=n_steps // 2 - k, device=dev)
+        # Its last PROFILED_STEPS steps in chunks of that many (a step does
+        # not depend on K) under the profiler, the card's activity alone:
+        # aggregating the host's events of a whole chunk took longer than
+        # the chunk.
+        tail_cfg = dataclasses.replace(run_cfg, train=dataclasses.replace(
+            run_cfg.train, steps_per_dispatch=PROFILED_STEPS))
+        train.fit(tail_cfg, resumed, start_state=fresh,
+                  num_steps=k - PROFILED_STEPS, device=dev)
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            train.fit(tail_cfg, resumed, start_state=fresh,
+                      num_steps=PROFILED_STEPS, device=dev)
+            torch.cuda.synchronize()
+            prof_s = time.perf_counter() - t0
+        busy_s = 1e-6 * sum(float(e.self_device_time_total)
+                            for e in prof.key_averages()
+                            if e.device_type == torch.autograd.DeviceType.CUDA)
+        step_s = chunk_s / k
+        got = fresh.model.state_dict()
+        diff = torch.sqrt(sum(torch.sum(torch.square(
+            got[n].double().cpu() - final[n].double())) for n in final))
+        norm = torch.sqrt(sum(torch.sum(torch.square(final[n].double()))
+                              for n in final))
+        bit_equal = all(torch.equal(got[n].cpu(), final[n]) for n in final)
+        resume_rel = float(diff / norm)
+        say("train", f"resume from step {n_steps // 2}: the same batches; "
+            f"parameters after {n_steps} steps against the uninterrupted "
+            f"run: relative 2-norm {resume_rel:.3g} (bound 1e-3), "
+            f"bit-equal {bit_equal}. Its last {PROFILED_STEPS} steps under "
+            f"the profiler: {prof_s:.2f} s, " + (
+                f"the card busy {busy_s:.3f} s ({100 * busy_s / prof_s:.1f} "
+                f"% of the profiled steps, "
+                f"{100 * busy_s / (PROFILED_STEPS * step_s):.1f} % of "
+                f"{PROFILED_STEPS} steps of the CLI run)" if busy_s else
+                "the profiler saw no kernel (a lost CUPTI buffer): busy "
+                "share not measured") + f" ({card})")
+        check(resume_rel <= 1e-3, f"resumed run differs: {resume_rel}")
+        del fresh
+        times["d_resume"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+        # The run directory serves its EMA weights.
+        rt = api.load_runtime("flagship", checkpoint=str(run),
+                              overrides=SERVING_OVERRIDES)
+        ema = mngr.read(n_steps)["ema_params"]
+        check(all(torch.equal(p.cpu(), ema[n])
+                  for n, p in rt.model.named_parameters()),
+              "load_runtime does not serve the run's EMA weights")
+        blob = rt.compress(img768)
+        x = torch.from_numpy(codec_runtime.to_model_range(
+            codec_runtime.pad_image(img768)[0]))[None].to(dev)
+        y, z_enc = rt._analysis(x, 0)
+        y_enc, _, _ = rt._y_passes(z_enc.cpu().numpy(), y=y)
+        _, y_dec, _, _ = rt._decode_symbols(blob)
+        check(torch.equal(y_dec.cpu(), y_enc.cpu()),
+              "the trained run's own round trip is not exact")
+        out = rt.decompress(blob)
+        check(out.shape == img768.shape, "bad decode of the trained run")
+        say("train", f"load_runtime(checkpoint=<run dir>) serves the step-"
+            f"{n_steps} EMA weights; its round trip of the 768x512 image is "
+            f"exact ({len(blob)} B)")
+    times["d_serve"] = time.perf_counter() - t_part
+    rep["recipe"] = {"steps": n_steps, "chunk_s": chunk_s,
+                     "profiled_steps": PROFILED_STEPS,
+                     "profiled_s": prof_s, "busy_s": busy_s,
+                     "busy_share_profiled": busy_s / prof_s,
+                     "busy_share": busy_s / (PROFILED_STEPS * step_s),
+                     "run_s": run_s,
+                     "steps_per_sec": sps, "peak_bytes": peak,
+                     "losses": losses, "main_losses": main_logged,
+                     "main_loss_fixed": [loss_init, loss_end],
+                     "resume_rel": resume_rel,
+                     "resume_bit_equal": bit_equal}
+    times["d_recipe"] = time.perf_counter() - t_d
+    # (e) the analytic rate estimate against the coder.
+    t_part = time.perf_counter()
+    npix = img768.shape[0] * img768.shape[1]
+    gaps = {}
+    for name, rt_, q in (("flagship", rt16, 0), ("vr_wide q0", rtv16, 0),
+                         ("vr_wide q1", rtv16, 1), ("vr_wide q2", rtv16, 2)):
+        est = rt_.estimate_bpp(img768, q)
+        real = 8 * len(rt_.compress(img768, quality=q if rt_ is rtv16
+                                    else None)) / npix
+        gaps[name] = {"estimate": est, "actual": real,
+                      "rel": (est - real) / real}
+    say("train", "estimate_bpp vs compress, 768x512 (BF16_POLICY): " + "; ".join(
+        f"{k_} {v_['estimate']:.4f} / {v_['actual']:.4f} "
+        f"({100 * v_['rel']:+.2f} %)" for k_, v_ in gaps.items())
+        + f" (sanity bound {100 * RATE_GAP_SANITY:g} %)")
+    check(all(abs(v_["rel"]) <= RATE_GAP_SANITY for v_ in gaps.values()),
+          f"estimate off the coder by more than the bound: {gaps}")
+    t0 = time.perf_counter()
+    blob_e, q_e, bpp_e = rtv16.compress_to_bpp(img768, vr_target,
+                                               probe="estimate")
+    est_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, q_c, bpp_c = rtv16.compress_to_bpp(img768, vr_target)
+    enc_s = time.perf_counter() - t0
+    padded = codec_runtime.pad_image(img768)
+    xv = torch.from_numpy(codec_runtime.to_model_range(
+        padded[0]))[None].to(dev)
+
+    def med(fn, runs=5):
+        fn()
+        times = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0_ = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0_))
+        return statistics.median(times)
+    probe_est = med(lambda: rtv16._estimate_bpp_device(xv, padded[1], 1.0))
+    probe_enc = med(lambda: rtv16.compress(img768, quality=1.0))
+    say("train", f"vr_wide compress_to_bpp({vr_target:.4f}): probe "
+        f"'estimate' bpp {bpp_e:.4f} at quality {q_e:.4f} in {est_s:.2f} s; "
+        f"probe 'encode' bpp {bpp_c:.4f} at quality {q_c:.4f} in "
+        f"{enc_s:.2f} s; one estimate probe {probe_est:.2f} ms, one encode "
+        f"probe {probe_enc:.2f} ms (median of 5) ({card})")
+    check(abs(bpp_e - vr_target) <= RATE_EST_REL * vr_target,
+          f"probe='estimate' missed {vr_target}: {bpp_e}")
+    rep["rate"] = {"gaps": gaps, "target": vr_target,
+                   "estimate": [bpp_e, q_e, est_s],
+                   "encode": [bpp_c, q_c, enc_s],
+                   "probe_ms": {"estimate": probe_est, "encode": probe_enc}}
+    times["e_rate"] = time.perf_counter() - t_part
+    rep["seconds"] = time.perf_counter() - t_phase
+    say("train", f"phase 15 took {rep['seconds']:.1f} s: " + ", ".join(
+        f"{key} {val:.1f}" for key, val in times.items()) + f" ({card})")
+    return step_launches
 
 
 if __name__ == "__main__":

@@ -44,6 +44,18 @@ writes into ``tpucdc_torch/fixtures/``:
                         order (group 0 anchors, group 0 non-anchors, ...),
                         each in stream order, uint8 [8, positions, 48];
         mean_u8_<tag>   JAX ``decompress(steps=0)``.
+  flagship_train_step.npz — one training step's loss and gradients of the
+      flagship recipe (scripts/r4d_queue.sh: the served flagship's model
+      with the t-low bias 0.35/0.5; λ 128, distortion "both", LPIPS 15) on
+      the trained weights, under F32_POLICY, at batch 2 and crop 192: the
+      two 192×192 crops of the holdout crop's top row, uint8 (batch_u8);
+      the draws of ``CDCModel.__call__`` under ``jax.random.key(0)`` in the
+      port's layout (draw_u_z, draw_u_y, draw_keep, draw_t, draw_eps);
+      metric_<name> for every metric of ``loss_fn``; grad_names and
+      grad_norms, every parameter's gradient 2-norm under the port's names;
+      grad__<name>, the full gradient of each parameter that feeds a kernel
+      and is small enough to store: every GN+SiLU scale and bias, every
+      attention block's q/k/v biases, and the mid block's q/k/v weights.
   eval_384x512.npz — JAX's eval metrics of the flagship fixture's decodes
       against its crop, for the pairs (crop_u8, serve_u8) and (crop_u8,
       mean_u8) of flagship_384x512.npz (tags serve, mean):
@@ -54,6 +66,10 @@ writes into ``tpucdc_torch/fixtures/``:
 
 Usage (from the repo root; a few minutes on a CPU host):
     python scripts/make_torch_fixtures.py
+One fixture alone, e.g. the training step's:
+    python -c "import sys; sys.path.insert(0, 'scripts'); import \
+make_torch_fixtures as m; from train_rd_sweep import split_eval_images; \
+m.write_train_step_fixture(split_eval_images('holdout')[0])"
 """
 
 import dataclasses
@@ -159,6 +175,59 @@ def write_eval_fixture(crop, serve_u8, mean_u8):
         f"{k} {float(v):.6f}" for k, v in arrays.items() if v.ndim == 0))
 
 
+TRAIN_LAMBDA, TRAIN_LPIPS, TRAIN_CROP = 128.0, 15.0, 192
+
+
+def write_train_step_fixture(crop):
+    """flagship_train_step.npz (see the module docstring)."""
+    from tpucdc.pipelines.train import loss_fn, schedule_tables
+    from tests._torch_jax_helpers import jax_forward_draws_np
+    from tpucdc_torch.utils import params_from_jax
+
+    t0 = time.time()
+    rt = flagship_runtime()
+    cfg = dataclasses.replace(rt.config, model=dataclasses.replace(
+        rt.config.model, t_low_frac=0.35, t_low_prob=0.5))
+    model = CDCModel(cfg.model.validated(), policy=F32_POLICY)
+    c = TRAIN_CROP
+    batch_u8 = np.stack([crop[:c, :c], crop[:c, c:2 * c]])
+    batch = jnp.asarray(batch_u8.astype(np.float32) * (1.0 / 127.5) - 1.0)
+    tables = schedule_tables(cfg)
+    rng = jax.random.key(0)
+    lpips = PerceptualMetric()
+    grads, metrics = jax.jit(jax.grad(
+        lambda p: loss_fn(model, p, batch, rng, tables, TRAIN_LAMBDA,
+                          distortion="both", lpips_weight=TRAIN_LPIPS,
+                          lpips_fn=lpips.distance),
+        has_aux=True))(rt.params)
+    draws = jax_forward_draws_np(cfg.model, rng, batch.shape,
+                                 cfg.model.schedule.num_steps)
+    leaves = jax.tree_util.tree_flatten_with_path(grads)[0]
+    flat = {jax.tree_util.keystr(kp): np.asarray(v) for kp, v in leaves}
+    named, _ = params_from_jax(flat)
+    names = sorted(named)
+    arrays = {"batch_u8": batch_u8,
+              "grad_names": np.asarray(names),
+              "grad_norms": np.asarray([np.linalg.norm(
+                  named[n].numpy().astype(np.float64)) for n in names])}
+    arrays.update({f"draw_{k}": v for k, v in draws.items()})
+    arrays.update({f"metric_{k}": np.asarray(v, np.float64)
+                   for k, v in metrics.items()})
+    for n in names:
+        leaf = n.rsplit(".", 2)
+        gn = n.endswith((".scale", ".bias")) and (
+            "norm1" in n or "norm_out" in n or "_norm." in n)
+        attn = ("attn" in n and leaf[-2] in ("q", "k", "v")
+                and (leaf[-1] == "bias" or ".mid_" in n))
+        if gn or attn:
+            arrays[f"grad__{n}"] = named[n].numpy()
+    np.savez_compressed(OUT / "flagship_train_step.npz", **arrays)
+    kept = sum(k.startswith("grad__") for k in arrays)
+    print(f"flagship_train_step.npz: loss {float(metrics['loss']):.6f}, "
+          f"{len(names)} gradient norms, {kept} full gradients, "
+          f"{time.time() - t0:.1f} s")
+
+
 def main():
     t0 = time.time()
     OUT.mkdir(parents=True, exist_ok=True)
@@ -192,6 +261,7 @@ def main():
           f"{None if hdr.gamma_grid is None else hdr.gamma_grid.shape}, "
           f"{time.time() - t0:.1f} s")
     write_eval_fixture(crop, serve_u8, mean_u8)
+    write_train_step_fixture(crop)
 
     img = synthetic_images(1, 512, 768, seed=7)[0]
     blob768 = rt.compress(img)

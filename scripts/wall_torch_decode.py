@@ -3,12 +3,13 @@
 distribution, for one checkout or for two in turns.
 
 The decode is host-bound and the host's clock is noisy, so one median says
-little. For each ``--root`` (a checkout that holds ``tpucdc_torch/`` and
-``artifacts/flagship_params.npz``; default: this one), in the order given, a
-child process times 40 decodes after 5 warm-ups under BF16_POLICY, each ended
-by ``torch.cuda.synchronize()``: the full ``CodecRuntime.decompress`` of
-``tpucdc_torch/fixtures/flagship_768x512.tpucdc`` (of this checkout) and the
-device stage alone, and prints min, quartiles and median. Give
+little. For each ``--root`` (a checkout that holds ``tpucdc_torch/``;
+default: this one), in the order given, a child process times 40 decodes
+after 5 warm-ups under BF16_POLICY, each ended by
+``torch.cuda.synchronize()``: the full ``CodecRuntime.decompress`` of
+``tpucdc_torch/fixtures/flagship_768x512.tpucdc`` with the weights of
+``artifacts/flagship_params.npz`` (both of this checkout) and the device
+stage alone, and prints min, quartiles and median. Give
 ``--root parent --root . --root parent --root .`` to compare two versions on
 one card. Needs a CUDA device; imports nothing of JAX or tpucdc.
 
@@ -40,7 +41,7 @@ def measure(root: pathlib.Path) -> dict:
 
     cfg = port.flagship_serving()
     model = port.CDCModel(cfg.model)
-    state, _ = port.load_params_npz(root / "artifacts" / "flagship_params.npz")
+    state, _ = port.load_params_npz(ROOT / "artifacts" / "flagship_params.npz")
     model.load_state_dict(state, strict=True)
     blob = BLOB.read_bytes()
     rt = port.CodecRuntime(cfg, model, device="cuda", policy=port.BF16_POLICY)

@@ -49,9 +49,11 @@ def to_torch_config(cfg):
         cond=torch_config.ConditioningConfig(**dataclasses.asdict(m.cond)),
         unet=torch_config.UNetConfig(**dataclasses.asdict(m.unet)),
         schedule=torch_config.ScheduleConfig(**dataclasses.asdict(m.schedule)),
-        prediction=m.prediction)
+        cond_dropout_prob=m.cond_dropout_prob, prediction=m.prediction,
+        t_low_frac=m.t_low_frac, t_low_prob=m.t_low_prob)
     return torch_config.Config(
         model=model,
+        train=torch_config.TrainConfig(**dataclasses.asdict(cfg.train)),
         sample=torch_config.SampleConfig(**dataclasses.asdict(cfg.sample)))
 
 
@@ -228,3 +230,100 @@ def one_blas_thread_per_module():
     from threadpoolctl import threadpool_limits
     with threadpool_limits(1):
         yield
+
+
+# ---- training: the port's initialisation carried to JAX ----
+
+def port_init_pair(cfg, seed: int = 0, perturb: float = 0.05):
+    """(F32 JAX model, its params, the port's F32 model) carrying one set of
+    weights: the port's ``init_weights`` from ``seed`` plus seeded noise on
+    every leaf (the UNet's zero head would otherwise hide the UNet), carried
+    to JAX by ``params_to_jax``. ``jax.eval_shape`` gives the tree, so no
+    JAX initialisation is compiled."""
+    from tpucdc_torch.utils import init_weights
+    tm = CDCModel(to_torch_config(cfg).model)
+    init_weights(tm, torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for p in tm.parameters():
+            p.add_(perturb * torch.from_numpy(
+                rng.standard_normal(p.shape).astype(np.float32)))
+    set_policy(tm, F32_POLICY)
+    jm = JaxCDCModel(cfg.model.validated(), policy=JAX_F32)
+    sched = jax_make_schedule(cfg.model.schedule.kind,
+                              cfg.model.schedule.num_steps)
+    tables = {"sqrt_ab": sched.sqrt_alpha_bars,
+              "sqrt_1mab": sched.sqrt_one_minus_alpha_bars}
+    x = jnp.zeros((1, 64, 64, 3), jnp.float32)
+    abstract = jax.eval_shape(
+        lambda: jm.init(jax.random.key(0), x, jax.random.key(0), tables))
+    return jm, jax_tree(tm.state_dict(), abstract), tm
+
+
+def jax_tree(state: dict, like):
+    """A port state_dict (or grads keyed alike) as a JAX params tree shaped
+    like ``like``, through ``params_to_jax``."""
+    from tpucdc_torch.utils import params_to_jax
+    flat = params_to_jax(state)
+    leaves, treedef = jax.tree_util.tree_flatten_with_path(like)
+    assert len(leaves) == len(flat)
+    return jax.tree_util.tree_unflatten(treedef, [
+        jnp.asarray(flat[jax.tree_util.keystr(kp)]) for kp, _ in leaves])
+
+
+def jax_forward_draws(model_cfg, rng, x_shape, T: int, train: bool = True,
+                      latent_factor: int = 16, hyper_factor: int = 4):
+    """The draws ``tpucdc.model.CDCModel.__call__`` makes from ``rng``, in
+    the port's ``draws`` layout (torch tensors)."""
+    return {k: t_(v) for k, v in jax_forward_draws_np(
+        model_cfg, rng, x_shape, T, train, latent_factor,
+        hyper_factor).items()}
+
+
+def jax_forward_draws_np(model_cfg, rng, x_shape, T: int, train: bool = True,
+                         latent_factor: int = 16, hyper_factor: int = 4):
+    """``jax_forward_draws`` as numpy arrays."""
+    cfg = model_cfg.validated()
+    b, h, w, _ = x_shape
+    codec = cfg.codec
+    y_shape = (b, h // latent_factor, w // latent_factor,
+               codec.latent_channels)
+    z_shape = (b, y_shape[1] // hyper_factor, y_shape[2] // hyper_factor,
+               codec.hyper_channels)
+    k_zq, k_yq, k_t, k_eps, k_drop, k_q = jax.random.split(rng, 6)
+    draws = {}
+    if codec.num_qualities > 1:
+        draws["quality"] = jax.random.randint(k_q, (b,), 0,
+                                              codec.num_qualities)
+    if train:
+        draws["u_z"] = jax.random.uniform(k_zq, z_shape, jnp.float32,
+                                          -0.5, 0.5)
+        draws["u_y"] = jax.random.uniform(k_yq, y_shape, jnp.float32,
+                                          -0.5, 0.5)
+        if cfg.cond_dropout_prob > 0:
+            draws["keep"] = (jax.random.uniform(k_drop, (b,))
+                             >= cfg.cond_dropout_prob)
+    k_t, k_tl, k_tm = jax.random.split(k_t, 3)
+    t = jax.random.randint(k_t, (b,), 0, T)
+    if cfg.t_low_prob > 0.0:
+        t_low = jax.random.randint(k_tl, (b,), 0,
+                                   max(int(cfg.t_low_frac * T), 1))
+        t = jnp.where(jax.random.uniform(k_tm, (b,)) < cfg.t_low_prob,
+                      t_low, t)
+    draws["t"] = t
+    draws["eps"] = jax.random.normal(k_eps, x_shape, jnp.float32)
+    return {k: np.asarray(v) for k, v in draws.items()}
+
+
+def t_(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x))
+
+
+def rel_err(got, want) -> float:
+    """‖got − want‖ / ‖want‖ (∞ when want is 0 and got is not)."""
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    num = np.linalg.norm(got - want)
+    den = np.linalg.norm(want)
+    return float(num / den) if den else (0.0 if num == 0 else float("inf"))

@@ -62,13 +62,15 @@ def test_tiny_decompress_matches_jax(tiny_pair, steps, gamma):
 
 def test_unported_modes_raise(tiny_pair):
     """What is still not ported raises and names the roadmap: the multi-card
-    branch of the tiled decode and the analytic rate estimate. A header that
-    asks for guidance no longer does: it decodes, to JAX's pixels."""
+    branch of the tiled decode. The analytic rate estimate no longer does:
+    it gives JAX's. A header that asks for guidance decodes, to JAX's
+    pixels."""
     jrt, trt, blob = tiny_pair
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 16"):
         trt.decompress_tiled(blob, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trt.estimate_bpp(np.zeros((64, 64, 3), np.uint8))
+    flat = np.zeros((64, 64, 3), np.uint8)
+    assert trt.estimate_bpp(flat) == pytest.approx(jrt.estimate_bpp(flat),
+                                                   rel=1e-5)
     hdr, streams = jax_entropy.read_bitstream(blob)
     hdr.guidance = 2.0
     guided = jax_entropy.write_bitstream(hdr, streams)

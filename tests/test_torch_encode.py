@@ -204,12 +204,12 @@ def test_optimize_gamma_default_noise_is_decompress_default(gamma_pair):
 
 
 def test_unported_encode_entry_points_raise(gamma_pair):
-    """The analytic rate estimate is the encode entry point still missing.
-    The batch entry points, which used to raise, give what the one-by-one
-    calls give (tests/test_torch_batch.py holds them against JAX's)."""
-    _, trt, img, eps = gamma_pair
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trt.estimate_bpp(img)
+    """The encode entry points that used to raise no longer do: the
+    analytic rate estimate gives JAX's, and the batch entry points give what the one-by-one calls give
+    (tests/test_torch_batch.py holds them against JAX's)."""
+    jrt, trt, img, eps = gamma_pair
+    est = trt.estimate_bpp(img)
+    assert est == pytest.approx(jrt.estimate_bpp(img), rel=1e-5)
     blob = trt.compress(img)
     assert trt.compress_many([img]) == [blob]
     np.testing.assert_array_equal(

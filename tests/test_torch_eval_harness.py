@@ -182,7 +182,7 @@ def test_time_decode(runtimes, images):
 
 def test_mesh_is_not_ported(runtimes, images):
     _, trt = runtimes
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 16"):
         port_eval.evaluate_image(trt, images[0],
                                  port_eval.EvalOptions(mesh=object()), None)
 

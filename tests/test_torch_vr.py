@@ -112,10 +112,10 @@ def test_rate_rises_with_quality(pair):
 
 
 def test_compress_to_bpp_follows_jax(pair):
-    """Rate control by bisection with full encodes: the quality the port
-    settles on is JAX's within one bisection step (the two encoders can
-    differ by a symbol, so a probe can fall on the other side of the
-    target), and the bitstream round-trips."""
+    """Rate control by bisection, with full encodes and with the analytic
+    estimate: the quality the port settles on is JAX's within one bisection
+    step (the two encoders can differ by a symbol, so a probe can fall on
+    the other side of the target), and the bitstream round-trips."""
     _, jrt, trt, img = pair
     npix = img.shape[0] * img.shape[1]
     lo = len(trt.compress(img, quality=0)) * 8 / npix
@@ -132,8 +132,18 @@ def test_compress_to_bpp_follows_jax(pair):
     # Out of reach on either side clamps to the endpoint.
     assert trt.compress_to_bpp(img, 1e-3)[1] == 0.0
     assert trt.compress_to_bpp(img, 1e3)[1] == 2.0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trt.compress_to_bpp(img, target, probe="estimate")
+    # The analytic probe: the estimate equals JAX's at every quality, and
+    # the search on it lands where JAX's does, within one bisection step.
+    for q in (0, 0.5, 2):
+        assert trt.estimate_bpp(img, q) == pytest.approx(
+            jrt.estimate_bpp(img, q), rel=1e-5)
+    jblob, jq, jbpp = jrt.compress_to_bpp(img, target, max_iters=iters,
+                                          tol=0.0, probe="estimate")
+    blob, q, bpp = trt.compress_to_bpp(img, target, max_iters=iters, tol=0.0,
+                                       probe="estimate")
+    assert abs(q - jq) <= 2.0 / 2 ** iters, (q, jq)
+    assert bpp == len(blob) * 8 / npix
+    assert_round_trip_exact(trt, img, blob, q)
     with pytest.raises(ValueError, match="probe"):
         trt.compress_to_bpp(img, target, probe="guess")
 

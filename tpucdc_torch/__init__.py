@@ -1,6 +1,6 @@
 """tpucdc_torch — the PyTorch/CUDA port of tpucdc for the NVIDIA H100.
 
-So far it encodes and decodes: ``CodecRuntime.compress`` (image → bitstream,
+It encodes and decodes: ``CodecRuntime.compress`` (image → bitstream,
 with the in-band γ search and rate control) and ``CodecRuntime.decompress``
 (bitstream → uint8 image) for every entropy model, single-rate or
 variable-rate, with classifier-free guidance, DDIM (plain or block-cached) or
@@ -8,8 +8,11 @@ DDPM sampling; ``decompress_tiled`` for large images; and the batch
 forms ``compress_many`` / ``decompress_many``. It evaluates (``eval``:
 PSNR, MS-SSIM, GMSD, the LPIPS and FID proxies, the R-D, latency and
 perceptual sweeps) and serves through ``api.load_runtime`` and
-``python -m tpucdc_torch compress|decompress|eval|rd-sweep``. Fused
-GroupNorm+SiLU and attention are hand-written CUDA kernels. The package
+``python -m tpucdc_torch compress|decompress|eval|rd-sweep``. It trains on
+one card (``api.train``, ``python -m tpucdc_torch train``,
+``pipelines.train.fit``), with checkpoints that ``load_runtime`` serves.
+Fused GroupNorm+SiLU and attention are hand-written CUDA kernels, with a
+backward in PyTorch operations. The package
 imports PyTorch and never JAX or the tpucdc package. Entry points run on the
 card unless the caller passes ``device="cpu"``, where every kernel's plain
 PyTorch version runs instead.

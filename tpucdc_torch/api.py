@@ -8,7 +8,10 @@
     blob = runtime.compress(img_u8)
     img = runtime.decompress(blob)
 
-Training (``train``) is not ported yet and raises.
+    model, state = tpucdc.train(preset="tiny", steps=1000,
+                                workdir="/tmp/run", device="cpu")
+    runtime = tpucdc.load_runtime("tiny", checkpoint="/tmp/run/lambda8",
+                                  device="cpu")
 """
 
 from __future__ import annotations
@@ -25,10 +28,10 @@ from tpucdc_torch.utils import draw_weights, load_params_npz
 PRESETS = {"tiny": presets.tiny, "flagship": presets.flagship}
 
 
-def _not_ported_training(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with training; see ROADMAP.md, "
-        f"Queue 1 item 13")
+def run_dir(workdir, cfg: Config) -> pathlib.Path:
+    """The λ-tagged run directory of ``cfg`` under ``workdir``: its
+    checkpoints go to ``ckpt/``, its metrics to ``logs/``."""
+    return pathlib.Path(workdir) / f"lambda{cfg.train.rd_lambda:g}"
 
 
 def build_config(preset: str = "flagship",
@@ -46,12 +49,15 @@ def load_model(cfg: Config, checkpoint: Optional[str] = None,
     """The model of ``cfg`` carrying the weights of ``checkpoint``.
 
     ``checkpoint`` is a ``save_params_npz`` file (e.g.
-    ``artifacts/flagship_params.npz``), which holds EMA parameters; every
-    array must map onto the model and every parameter must be in it. With
-    no checkpoint the weights are drawn by ``utils.draw_weights(model, 0)``:
-    they are not the JAX package's flax initialisation, which needs JAX to
-    reproduce, so a no-checkpoint runtime of the port does not decode what
-    a no-checkpoint JAX runtime encoded.
+    ``artifacts/flagship_params.npz``), which holds EMA parameters, or a
+    run directory of the port's ``train`` (its ``ckpt/`` directory, or the
+    λ directory holding it): the latest step's EMA parameters, or the raw
+    ones with ``use_ema=False``. Every array must map onto the model and
+    every parameter must be in it. The JAX package's orbax run directories
+    are not read: orbax needs JAX. With no checkpoint the weights are drawn
+    by ``utils.draw_weights(model, 0)``: they are not the JAX package's flax
+    initialisation, so a no-checkpoint runtime of the port does not decode
+    what a no-checkpoint JAX runtime encoded.
     """
     model = CDCModel(cfg.model)
     if checkpoint is None:
@@ -59,12 +65,16 @@ def load_model(cfg: Config, checkpoint: Optional[str] = None,
         return model
     path = pathlib.Path(checkpoint)
     if path.is_dir():
-        raise _not_ported_training(
-            f"reading the orbax run directory {path}")
+        from tpucdc_torch.utils.checkpoint import CheckpointManager
+        if (path / "ckpt").is_dir():
+            path = path / "ckpt"
+        saved = CheckpointManager(path).read()
+        model.load_state_dict(
+            saved["ema_params"] if use_ema else saved["params"], strict=True)
+        return model
     if not use_ema:
         raise ValueError(f"{path} holds EMA parameters only; the raw "
-                         f"training parameters live in an orbax run "
-                         f"directory, which the port does not read yet")
+                         f"training parameters are in a run directory")
     state, unused = load_params_npz(path)
     if unused:
         raise ValueError(f"{path}: {len(unused)} arrays map onto nothing, "
@@ -86,6 +96,28 @@ def load_runtime(preset: str = "flagship", checkpoint: Optional[str] = None,
 
 def train(preset: str = "tiny", steps: int = 1000,
           workdir: Optional[str] = None, dataset: str = "kodak",
-          overrides: Optional[dict] = None):
-    """R-D training: not ported yet."""
-    raise _not_ported_training("train")
+          overrides: Optional[dict] = None, device="cuda"):
+    """R-D training on ``device`` (the card unless the caller passes "cpu")
+    for ``steps`` steps, with checkpoints in ``run_dir(workdir)/ckpt`` and
+    metrics in ``run_dir(workdir)/logs``; returns (model, final
+    TrainState)."""
+    from tpucdc_torch.data import eval_dataset, train_crop_iterator
+    from tpucdc_torch.pipelines import train as train_lib
+    from tpucdc_torch.utils import MetricLogger
+    from tpucdc_torch.utils.checkpoint import CheckpointManager
+
+    cfg = build_config(preset, overrides)
+    wd = run_dir(workdir or cfg.workdir, cfg)
+    logger = MetricLogger(wd / "logs")
+    ckpt = CheckpointManager(wd / "ckpt")
+    ds = eval_dataset(dataset)
+    data = train_crop_iterator(ds.images, cfg.train.batch_size,
+                               cfg.train.crop_size, seed=cfg.train.seed,
+                               as_uint8=True)
+    try:
+        return train_lib.fit(cfg, data, writer=logger,
+                             checkpointer=lambda step, st: ckpt.save(step, st),
+                             num_steps=steps, device=device)
+    finally:
+        ckpt.close()
+        logger.close()

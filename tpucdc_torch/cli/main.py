@@ -6,16 +6,17 @@ Verbs:
   eval        — dataset eval: R-D rows / latency / the perceptual sweep →
                 JSONL.
   rd-sweep    — the R-D curve over the λ grid.
-  train       — not ported yet (raises).
+  train       — R-D training with checkpoints, in <workdir>/lambda{λ}/.
 
 Config: ``--preset tiny|flagship`` plus ``--set a.b.c=value`` dot-overrides;
 the trained flagship is ``--preset flagship`` with the ``--set`` list of
 ``presets.SERVING_OVERRIDES`` and ``--checkpoint
 artifacts/flagship_params.npz``. ``--checkpoint`` reads a
-``save_params_npz`` file (EMA weights); without one the weights are drawn
-from seed 0 (``api.load_model``). ``--device`` picks the card (``cuda``, the
+``save_params_npz`` file (EMA weights) or a run directory of ``train`` (its
+latest EMA weights); without one the weights are drawn from seed 0
+(``api.load_model``). ``--device`` picks the card (``cuda``, the
 default) or ``cpu``. ``--profile DIR`` writes a torch.profiler trace of the
-decode. ``--seed`` seeds the decode's generator.
+decode or of the training run. ``--seed`` seeds the decode's generator.
 """
 
 from __future__ import annotations
@@ -71,8 +72,13 @@ def _generator(runtime, seed: int):
 
 
 def cmd_train(args):
-    raise NotImplementedError(
-        "the train verb is not ported yet; see ROADMAP.md, Queue 1 item 13")
+    from tpucdc_torch import api
+    from tpucdc_torch.utils import profile_trace
+
+    overrides = dict(kv.split("=", 1) for kv in (args.set or []))
+    with profile_trace(args.profile):
+        api.train(args.preset, steps=args.steps, workdir=args.workdir,
+                  overrides=overrides, device=args.device)
 
 
 def _is_dir_output(inputs, output) -> bool:
@@ -187,7 +193,7 @@ def cmd_eval(args):
     if args.mesh:
         raise NotImplementedError(
             "eval --mesh (the tiled decode sharded over several cards) is "
-            "not ported yet; see ROADMAP.md, Queue 1 item 14")
+            "not ported yet; see ROADMAP.md, Queue 1 item 16")
     cfg, runtime = _load_runtime(args)
     ds = eval_dataset(args.dataset)
     logger = MetricLogger(args.workdir or cfg.workdir)
@@ -216,10 +222,9 @@ def cmd_eval(args):
 
 
 def cmd_rd_sweep(args):
-    """The R-D curve over the λ grid. Each λ reads its checkpoint from
-    <workdir>/lambda{λ}/ckpt (the train verb's layout: an orbax directory,
-    which raises until training is ported); without one the weights are
-    drawn from seed 0."""
+    """The R-D curve over the λ grid. Each λ reads its latest EMA weights
+    from <workdir>/lambda{λ}/ckpt (the train verb's layout); without one the
+    weights are drawn from seed 0."""
     from tpucdc_torch import api, presets
     from tpucdc_torch.data import eval_dataset
     from tpucdc_torch.eval.harness import EvalOptions, rd_sweep
@@ -233,7 +238,7 @@ def cmd_rd_sweep(args):
     def make_runtime(lam: float) -> CodecRuntime:
         c = dataclasses.replace(
             cfg, train=dataclasses.replace(cfg.train, rd_lambda=lam))
-        ckpt_dir = workdir / f"lambda{lam:g}" / "ckpt"
+        ckpt_dir = api.run_dir(workdir, c) / "ckpt"
         model = api.load_model(c, ckpt_dir if ckpt_dir.exists() else None)
         return CodecRuntime(c, model, device=args.device)
 
@@ -259,7 +264,8 @@ def main(argv=None):
                         choices=["tiny", "flagship"])
         sp.add_argument("--set", action="append", metavar="KEY=VAL")
         sp.add_argument("--checkpoint", default=None,
-                        help="a save_params_npz file of EMA weights")
+                        help="a save_params_npz file of EMA weights, or a "
+                             "run directory of train")
         sp.add_argument("--workdir", default=None)
         sp.add_argument("--profile", default=None, metavar="TRACE_DIR")
         sp.add_argument("--seed", type=int, default=0)
@@ -269,7 +275,7 @@ def main(argv=None):
         sp.add_argument("--device", default="cuda",
                         help="torch device: cuda (default) or cpu")
 
-    sp = sub.add_parser("train", help="R-D training (not ported yet)")
+    sp = sub.add_parser("train", help="R-D training")
     common(sp)
     sp.add_argument("--steps", type=int, default=None)
     sp.set_defaults(fn=cmd_train)

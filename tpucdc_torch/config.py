@@ -1,9 +1,8 @@
 """Typed dataclass configs, mirroring tpucdc/config.py field for field.
 
 The codec, conditioning and UNet configs live beside their modules in the
-JAX package; the port keeps them all here. Of the training settings only the
-ones a preset names are here; the rest wait for the training slice.
-``apply_overrides`` is the CLI's ``--set a.b.c=value``.
+JAX package; the port keeps them all here. ``apply_overrides`` is the CLI's
+``--set a.b.c=value``.
 """
 
 from __future__ import annotations
@@ -65,7 +64,8 @@ class ConditioningConfig:
     # Resolution of the emitted feature map relative to the image
     # (p = the UNet's post-patch grid).
     output_stride: int = 1
-    # Upsampling stage kind; the port implements "repeat" so far.
+    # Upsampling stage kind: "repeat" (nearest ×2, then a conv) or "shuffle"
+    # (a conv to 4·ch at the low resolution, then depth-to-space ×2).
     upsample: str = "repeat"
 
 
@@ -160,12 +160,40 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The training settings the presets name; the rest of the JAX package's
-    TrainConfig waits for the training slice."""
     batch_size: int = 32
     crop_size: int = 256
+    steps: int = 1_000_000
+    lr: float = 1e-4
+    warmup_steps: int = 5_000
+    weight_decay: float = 0.0
+    grad_clip: float = 1.0
+    ema_decay: float = 0.9999
     # R-D tradeoff: loss = rate_bpp + lambda * distortion.
     rd_lambda: float = 1.0
+    # Variable-rate training: a λ per quality (len == codec.num_qualities);
+    # empty = single-rate with rd_lambda.
+    rd_lambdas: tuple[float, ...] = ()
+    # Distortion term: "eps" | "x0" | "both".
+    distortion: str = "eps"
+    # Weight of the diffusion (ε/x₀) terms when codec.synthesis splits them
+    # off the λ-weighted distortion (pipelines.train.loss_fn).
+    diff_weight: float = 1.0
+    # LPIPS(-proxy) term on the clipped one-step x₀ prediction (the
+    # refiner's output), never on x̄.
+    lpips_weight: float = 0.0
+    # Adam learning rate of the factorized prior's quantiles.
+    aux_lr: float = 1e-2
+    # Optimizer steps per loop iteration (K): logging, checkpoints and fault
+    # injection fall on K-step boundaries.
+    steps_per_dispatch: int = 1
+    log_every: int = 100
+    checkpoint_every: int = 5_000
+    seed: int = 0
+    # Debug fault injection: exit the process with code 42 at this step.
+    fault_inject_step: int = -1
+    # Parameter placement over several cards: "replicated" or "tensor";
+    # only one card is supported so far (ROADMAP.md, Queue 1 item 16).
+    param_sharding: str = "replicated"
 
 
 @dataclasses.dataclass(frozen=True)

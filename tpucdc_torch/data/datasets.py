@@ -207,35 +207,50 @@ def tecnick() -> EvalDataset:
     return eval_dataset("tecnick")
 
 
-def train_crop_iterator(images: list[np.ndarray], batch_size: int,
-                        crop: int, seed: int = 0,
-                        as_uint8: bool = False) -> Iterator[np.ndarray]:
-    """Infinite iterator of random-crop + flip batches in [-1, 1] f32.
-
-    Deterministic given (images, seed) and resumable by step count: each
-    batch's generator is seeded with (seed, batch index), so resuming at
-    step N reproduces the batch stream exactly.
-
-    ``as_uint8`` yields raw uint8 batches, for a train step that converts
-    to [-1, 1] f32 on the device: 4× fewer bytes to the card per step.
-    """
+def usable_images(images: list[np.ndarray], crop: int) -> list[np.ndarray]:
+    """The images at least ``crop`` pixels on both sides; raises if none."""
     usable = [im for im in images
               if im.shape[0] >= crop and im.shape[1] >= crop]
     if not usable:
         raise ValueError(f"no images at least {crop}px on both sides")
-    batch_idx = 0
-    dtype = np.uint8 if as_uint8 else np.float32
+    return usable
+
+
+def crop_batch(usable: list[np.ndarray], batch_size: int, crop: int,
+               seed: int, batch_idx: int, as_uint8: bool = False
+               ) -> np.ndarray:
+    """Batch ``batch_idx``: random crops and flips drawn from a generator
+    seeded with (seed, batch_idx); [-1, 1] f32, or the raw uint8."""
+    rng = np.random.default_rng((seed, batch_idx))
+    out = np.empty((batch_size, crop, crop, 3),
+                   np.uint8 if as_uint8 else np.float32)
+    for b in range(batch_size):
+        im = usable[rng.integers(len(usable))]
+        i = rng.integers(im.shape[0] - crop + 1)
+        j = rng.integers(im.shape[1] - crop + 1)
+        patch = im[i:i + crop, j:j + crop]
+        if rng.random() < 0.5:
+            patch = patch[:, ::-1]
+        out[b] = patch if as_uint8 else (
+            patch.astype(np.float32) / 127.5 - 1.0)
+    return out
+
+
+def train_crop_iterator(images: list[np.ndarray], batch_size: int,
+                        crop: int, seed: int = 0,
+                        as_uint8: bool = False,
+                        start: int = 0) -> Iterator[np.ndarray]:
+    """Infinite iterator of random-crop + flip batches in [-1, 1] f32.
+
+    Deterministic given (images, seed) and resumable by step count: each
+    batch's generator is seeded with (seed, batch index), so ``start=N``
+    (a run resumed at step N) gives the stream from batch N exactly.
+
+    ``as_uint8`` yields raw uint8 batches, for a train step that converts
+    to [-1, 1] f32 on the device: 4× fewer bytes to the card per step.
+    """
+    usable = usable_images(images, crop)
+    batch_idx = start
     while True:
-        rng = np.random.default_rng((seed, batch_idx))
-        out = np.empty((batch_size, crop, crop, 3), dtype)
-        for b in range(batch_size):
-            im = usable[rng.integers(len(usable))]
-            i = rng.integers(im.shape[0] - crop + 1)
-            j = rng.integers(im.shape[1] - crop + 1)
-            patch = im[i:i + crop, j:j + crop]
-            if rng.random() < 0.5:
-                patch = patch[:, ::-1]
-            out[b] = patch if as_uint8 else (
-                patch.astype(np.float32) / 127.5 - 1.0)
+        yield crop_batch(usable, batch_size, crop, seed, batch_idx, as_uint8)
         batch_idx += 1
-        yield out

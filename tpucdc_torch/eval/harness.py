@@ -53,7 +53,7 @@ def evaluate_image(runtime: CodecRuntime, img: np.ndarray,
     if opts.mesh is not None:
         raise NotImplementedError(
             "EvalOptions.mesh (a decode sharded over several cards) is not "
-            "ported yet; see ROADMAP.md, Queue 1 item 14")
+            "ported yet; see ROADMAP.md, Queue 1 item 16")
     h, w = img.shape[:2]
     n_pixels = h * w
 

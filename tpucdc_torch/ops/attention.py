@@ -10,6 +10,14 @@ be any views with a contiguous last dimension: the head view of a
 ``[B, N, H*d]`` projection is read in place. The result is allocated as
 ``[B, N, H, d]`` and returned as its ``[B, H, N, d]`` view, so that
 ``out.transpose(1, 2).reshape(B, N, H*d)`` copies nothing.
+
+Where autograd records (grad enabled and an input that requires grad), the
+kernel is the forward of ``_Attention``, an autograd.Function whose backward
+recomputes softmax(q·kᵀ·scale) in f32 from the saved q, k and v in PyTorch
+operations; otherwise (a decode) the wrapper launches the kernel directly.
+The JAX package has no backward kernel (it differentiates its XLA
+reference), so there is none to port; on a CPU tensor autograd runs through
+the plain version.
 """
 
 from __future__ import annotations
@@ -32,9 +40,42 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if q.is_cuda:
+    if not q.is_cuda:
+        return attention_reference(q, k, v, scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _Attention.apply(q, k, v, scale)
+    return attention_cuda(q, k, v, scale)
+
+
+class _Attention(torch.autograd.Function):
+    """The kernel forward; a backward in PyTorch operations that recomputes
+    the f32 softmax from the saved q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
         return attention_cuda(q, k, v, scale)
-    return attention_reference(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        return (*attention_backward(dout, q, k, v, ctx.scale), None)
+
+
+def attention_backward(dout, q, k, v, scale: float):
+    """(dq, dk, dv) of softmax(q·kᵀ·scale)·v, in f32 and cast back to the
+    dtypes of q, k and v; the shapes are theirs ([B, H, N, d])."""
+    qf, kf, vf = (t.to(torch.float32) for t in (q, k, v))
+    p = torch.softmax(torch.matmul(qf, kf.transpose(-1, -2)) * scale, dim=-1)
+    do = dout.to(torch.float32)
+    dv = torch.matmul(p.transpose(-1, -2), do)
+    dp = torch.matmul(do, vf.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * scale
+    dq = torch.matmul(ds, kf)
+    dk = torch.matmul(ds.transpose(-1, -2), qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _head_major(out_bhnd: torch.Tensor, dtype) -> torch.Tensor:

@@ -6,6 +6,14 @@ kernel of ``csrc/gn_silu.cu`` (which replaces the JAX package's Pallas
 kernel); on a CPU tensor it runs the plain version beside it. There is no
 fallback: a CUDA tensor the kernel does not take raises.
 
+Where autograd records (grad enabled and an input that requires grad), the
+kernel is the forward of ``_GNSiLU``, an autograd.Function whose backward
+recomputes the f32 group statistics from the saved input in PyTorch
+operations; otherwise (a decode) the wrapper launches the kernel directly.
+The JAX package has no backward kernel (it differentiates its XLA
+reference), so there is none to port; on a CPU tensor autograd runs through
+the plain version.
+
 ``group_norm`` (ResBlock norm2, the attention pre-norm) is plain PyTorch, as
 it is plain XLA in the JAX package.
 """
@@ -57,9 +65,52 @@ def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 def group_norm_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                     num_groups: int, eps: float = 1e-5) -> torch.Tensor:
     """Fused GroupNorm + SiLU. x: [B, ..., C] NHWC; gamma/beta: [C]."""
-    if x.is_cuda:
+    if not x.is_cuda:
+        return gn_reference(x, gamma, beta, num_groups, eps, fuse_silu=True)
+    if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad
+                                    or beta.requires_grad):
+        return _GNSiLU.apply(x, gamma, beta, num_groups, eps)
+    return gn_silu_cuda(x, gamma, beta, num_groups, eps)
+
+
+class _GNSiLU(torch.autograd.Function):
+    """The kernel forward; a backward in PyTorch operations from the saved
+    input, parameters and the recomputed f32 statistics."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, num_groups: int, eps: float):
+        ctx.save_for_backward(x, gamma, beta)
+        ctx.num_groups, ctx.eps = num_groups, eps
         return gn_silu_cuda(x, gamma, beta, num_groups, eps)
-    return gn_reference(x, gamma, beta, num_groups, eps, fuse_silu=True)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, gamma, beta = ctx.saved_tensors
+        dx, dgamma, dbeta = gn_silu_backward(dout, x, gamma, beta,
+                                             ctx.num_groups, ctx.eps)
+        return dx, dgamma, dbeta, None, None
+
+
+def gn_silu_backward(dout, x, gamma, beta, num_groups: int, eps: float):
+    """(dx, dγ, dβ) of GroupNorm+SiLU, in f32 and cast back: dx to x's
+    dtype, dγ and dβ to the parameters' dtypes."""
+    b, c = x.shape[0], x.shape[-1]
+    xf = x.to(torch.float32).reshape(b, -1, num_groups, c // num_groups)
+    mean = xf.mean(dim=(1, 3), keepdim=True)
+    var = (xf - mean).square().mean(dim=(1, 3), keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    xhat = ((xf - mean) * rstd).reshape(b, -1, c)
+    y = xhat * gamma.to(torch.float32) + beta.to(torch.float32)
+    sig = torch.sigmoid(y)
+    g = dout.to(torch.float32).reshape(b, -1, c) * (sig * (1 + y * (1 - sig)))
+    dgamma = (g * xhat).sum(dim=(0, 1))
+    dbeta = g.sum(dim=(0, 1))
+    dxhat = (g * gamma.to(torch.float32)).reshape(xf.shape)
+    xhat = xhat.reshape(xf.shape)
+    dx = rstd * (dxhat - dxhat.mean(dim=(1, 3), keepdim=True)
+                 - xhat * (dxhat * xhat).mean(dim=(1, 3), keepdim=True))
+    return (dx.reshape(x.shape).to(x.dtype), dgamma.to(gamma.dtype),
+            dbeta.to(beta.dtype))
 
 
 def gn_reference(x, gamma, beta, num_groups: int, eps: float,

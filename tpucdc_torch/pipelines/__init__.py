@@ -1,4 +1,5 @@
-"""User-facing pipelines: the compress/decompress runtime."""
+"""User-facing pipelines: the compress/decompress runtime, evaluation and
+training."""
 
 from tpucdc_torch.pipelines.codec_runtime import CodecRuntime
 

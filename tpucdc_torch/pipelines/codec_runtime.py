@@ -46,8 +46,10 @@ rounding. g_a, h_a and the device stage run under the runtime's ``policy``
 
 The coder tables are built from the model, or injected (``cdf_tables=``)
 from a sidecar that ``save_cdf_tables`` wrote, in the JAX package's format.
-The analytic rate estimate (``estimate_bpp``, ``probe="estimate"``) and the
-multi-card branch of the tiled decode (``mesh=``) raise NotImplementedError.
+``estimate_bpp`` is the analytic rate (``CDCModel.rate_estimate`` plus the
+container's fixed bytes) without running the coder; ``compress_to_bpp(
+probe="estimate")`` bisects on it. The multi-card branch of the tiled decode
+(``mesh=``) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -95,10 +97,6 @@ def from_model_range(x: np.ndarray) -> np.ndarray:
 
 def _to_uint8(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp((x + 1.0) * 127.5 + 0.5, 0, 255).to(torch.uint8)
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet; see ROADMAP.md")
 
 
 def _mse(a: np.ndarray, ref64: np.ndarray) -> float:
@@ -593,48 +591,104 @@ class CodecRuntime:
         The endpoints are measured rather than assumed, so a reversed or
         flat gain ladder degrades to the closest endpoint; a target outside
         the reachable span clamps to the nearest endpoint (the returned bpp
-        says what was achieved). Every probe is a full encode.
+        says what was achieved).
+
+        ``probe="encode"``: every probe is a full encode. ``probe="estimate"``:
+        the probes are ``estimate_bpp`` on the device (no host coding), then
+        one encode at the chosen quality; the returned bpp is the real
+        container's, so the estimate's bias only moves which quality the
+        search settles on.
         """
         if self._nq < 2:
             raise ValueError("compress_to_bpp needs a variable-rate model "
                              "(codec.num_qualities > 1)")
-        if probe == "estimate":
-            raise _not_ported("compress_to_bpp(probe='estimate')")
-        if probe != "encode":
+        if probe not in ("encode", "estimate"):
             raise ValueError(f"unknown probe mode {probe!r}")
         npix = img_u8.shape[0] * img_u8.shape[1]
 
         def encode_at(q):
             blob = self.compress(img_u8, quality=q)
-            return blob, q, len(blob) * 8.0 / npix
+            return len(blob) * 8.0 / npix, blob
 
-        lo, hi = encode_at(0.0), encode_at(float(self._nq - 1))
-        if hi[2] < lo[2]:       # descending ladder: swap so bpp rises with q
-            lo, hi = hi, lo
-        if target_bpp <= lo[2]:
-            best = lo
-        elif target_bpp >= hi[2]:
-            best = hi
+        if probe == "encode":
+            q, bpp, blob = self._bisect_quality(encode_at, target_bpp, tol,
+                                                max_iters)
         else:
-            best = min((lo, hi), key=lambda t: abs(t[2] - target_bpp))
-            lo_q, hi_q = lo[1], hi[1]
-            for _ in range(max_iters):
-                if abs(best[2] - target_bpp) / target_bpp <= tol:
-                    break
-                mid = encode_at(0.5 * (lo_q + hi_q))
-                if abs(mid[2] - target_bpp) < abs(best[2] - target_bpp):
-                    best = mid
-                if mid[2] < target_bpp:
-                    lo_q = mid[1]
-                else:
-                    hi_q = mid[1]
-        blob, q, bpp = best
+            # Bisect on the analytic rate; the padded image is uploaded once
+            # for every probe, and the coder runs once, at the end.
+            padded, (h, w) = pad_image(img_u8)
+            x = torch.from_numpy(to_model_range(padded))[None].to(self.device)
+            q, _, _ = self._bisect_quality(
+                lambda q: (self._estimate_bpp_device(x, (h, w), q), None),
+                target_bpp, tol, max_iters)
+            bpp, blob = encode_at(q)
         if optimize_gamma:
             blob = self._optimize_gamma(blob, img_u8, optimize_gamma)
         return blob, q, bpp
 
+    def _bisect_quality(self, measure, target_bpp: float, tol: float,
+                        max_iters: int):
+        """(quality, bpp, payload) of the probe nearest ``target_bpp``:
+        ``measure(q)`` gives (bpp, payload) at the endpoints, then at
+        midpoints until one is within ``tol`` (relative) or ``max_iters``
+        are spent. A target outside the endpoints' span gives the nearer
+        endpoint."""
+        lo = (0.0, *measure(0.0))
+        hi = (float(self._nq - 1), *measure(float(self._nq - 1)))
+        if hi[1] < lo[1]:       # descending ladder: swap so bpp rises with q
+            lo, hi = hi, lo
+        if target_bpp <= lo[1]:
+            return lo
+        if target_bpp >= hi[1]:
+            return hi
+        best = min((lo, hi), key=lambda r: abs(r[1] - target_bpp))
+        lo_q, hi_q = lo[0], hi[0]
+        for _ in range(max_iters):
+            if abs(best[1] - target_bpp) / target_bpp <= tol:
+                break
+            mid_q = 0.5 * (lo_q + hi_q)
+            mid = (mid_q, *measure(mid_q))
+            if abs(mid[1] - target_bpp) < abs(best[1] - target_bpp):
+                best = mid
+            if mid[1] < target_bpp:
+                lo_q = mid_q
+            else:
+                hi_q = mid_q
+        return best
+
+    def _container_overhead_bits(self, quality: float = 0) -> int:
+        """The container's bits on top of the entropy payload: magic and
+        version (5 B), the header (16 B in v3, 20 B in the v4 container a
+        fractional quality needs), and per stream its framing (length and
+        crc32, 8 B) and the rANS state flush (4 B)."""
+        n_streams = 1 + {"hyperprior": 1, "checkerboard": 2,
+                         "channel-ar": self._groups,
+                         "space-channel": 2 * self._groups}[self._context]
+        prefix = 25 if float(quality) != int(quality) else 21
+        return (prefix + 12 * n_streams) * 8
+
     def estimate_bpp(self, img_u8: np.ndarray, quality: float = 0) -> float:
-        raise _not_ported("estimate_bpp (the analytic rate estimate)")
+        """Analytic bits per original pixel: the entropy models' rate the
+        coder would realise plus the container's fixed bits, without running
+        the coder. What remains to the real container is rANS's escape
+        coding (data-dependent, about 1 %)."""
+        padded, (h, w) = pad_image(img_u8)
+        x = torch.from_numpy(to_model_range(padded))[None].to(self.device)
+        return self._estimate_bpp_device(x, (h, w), quality)
+
+    @torch.inference_mode()
+    def _estimate_bpp_device(self, x: torch.Tensor, orig_hw, quality) -> float:
+        """``estimate_bpp`` of a padded [1,H,W,3] image already on the
+        device (the rate-control loop uploads it once)."""
+        h, w = orig_hw
+        if self._nq > 1:
+            gain = torch.from_numpy(self.quality_gains(float(quality))[0])
+        else:
+            gain = torch.ones(self._latent_c)
+        bpp_y, bpp_z = self.model.rate_estimate(x, gain.to(self.device))
+        payload_bits = float(bpp_y + bpp_z) * x.shape[1] * x.shape[2]
+        return (payload_bits
+                + self._container_overhead_bits(quality)) / (h * w)
 
     def compress_many(self, imgs: Sequence[np.ndarray], quality_id: int = 0,
                       quality: float | None = None) -> list[bytes]:
@@ -829,7 +883,7 @@ class CodecRuntime:
         if mesh is not None:
             raise NotImplementedError(
                 "decompress_tiled(mesh=...) is not ported yet; see "
-                "ROADMAP.md, Queue 1 item 14")
+                "ROADMAP.md, Queue 1 item 16")
         sample = self.config.sample
         y_hat, hdr = self.decode_latent(blob)
         ph = hdr.height + ((-hdr.height) % PAD_MULTIPLE)

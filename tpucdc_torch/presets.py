@@ -23,7 +23,8 @@ def tiny() -> Config:
                             patch_size=2, groups=8),
             schedule=ScheduleConfig(kind="cosine", num_steps=256),
         ),
-        train=TrainConfig(batch_size=8, crop_size=64, rd_lambda=8.0),
+        train=TrainConfig(batch_size=8, crop_size=64, lr=3e-4,
+                          warmup_steps=100, rd_lambda=8.0),
         sample=SampleConfig(steps=50),
     ).validated()
 

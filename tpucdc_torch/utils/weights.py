@@ -19,8 +19,14 @@ carry the flax names, so the mapping is mechanical:
 Every array of a checkpoint maps onto the model, so
 ``CDCModel.load_state_dict(strict=True)`` raises on a key either side lacks.
 
-``draw_weights`` fills a model that has no checkpoint (the large ``flagship``
-preset) from a seeded generator, where no JAX is at hand to initialise it.
+``params_to_jax`` is the inverse: a state_dict in the JAX package's key
+layout, which ``save_params_npz`` writes and JAX's ``load_params_npz`` reads.
+
+``init_weights`` is the training initialisation, flax's in distribution and
+the JAX package's constants exactly. ``draw_weights`` fills a model that
+serves without a checkpoint (the large ``flagship`` preset) from a seeded
+generator; it draws the UNet's zero-initialised head too, so it is no
+training initialisation.
 """
 
 from __future__ import annotations
@@ -90,6 +96,119 @@ def load_params_npz(path) -> tuple[dict, list[str]]:
     """Read a ``save_params_npz`` file into (state_dict, unused keys)."""
     with np.load(pathlib.Path(path)) as data:
         return params_from_jax({k: data[k] for k in data.files})
+
+
+def _flax_module_path(parts: list[str]) -> list[str]:
+    """The port's dotted module path → flax's module names."""
+    out, i = [], 0
+    while i < len(parts):
+        p = parts[i]
+        if p in _LIST_NAMES:
+            # A ModuleList member: one index (ctx_convs_G) or two (heads_G_I).
+            idx = [parts[i + 1]]
+            i += 2
+            if i < len(parts) and parts[i].isdigit():
+                idx.append(parts[i])
+                i += 1
+            out.append(p + "_" + "_".join(idx))
+            continue
+        out.append("Conv_0" if p == "conv" else p)
+        i += 1
+    return out
+
+
+_LIST_NAMES = {"down_res", "down_attn", "down_xattn", "up_res", "up_attn",
+               "up_xattn", "downsamplers", "upsamplers", "heads",
+               "anchor_heads", "ctx_convs", "fuse"}
+
+
+def params_to_jax(state: dict) -> dict:
+    """A state_dict → the flat flax params ``save_params_npz`` writes: the
+    inverse of ``params_from_jax``, key for key and array for array."""
+    flat = {}
+    for name, value in state.items():
+        parts = name.split(".")
+        module, leaf = parts[:-1], parts[-1]
+        arr = value.detach().cpu().numpy().astype(np.float32)
+        if leaf == "weight":
+            dotted = ".".join(module)
+            if arr.ndim == 4 and _TRANSPOSED.match(dotted):
+                arr = np.flip(arr.transpose(2, 3, 0, 1), (0, 1))
+            elif arr.ndim == 4:
+                arr = arr.transpose(2, 3, 1, 0)
+            elif arr.ndim == 2:
+                arr = arr.T
+            leaf = "kernel"
+        key = "".join(f"['{p}']" for p in
+                      ["params", *_flax_module_path(module), leaf])
+        flat[key] = np.ascontiguousarray(arr)
+    return flat
+
+
+def save_params_npz(state: dict, path) -> None:
+    """Write a state_dict as the JAX package's ``save_params_npz`` would
+    write the same parameters: one compressed .npz, flax keystr keys."""
+    path = pathlib.Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **params_to_jax(state))
+
+
+# flax's lecun_normal: a normal truncated at ±2σ, scaled so that the variance
+# after the truncation is 1/fan_in (the constant is the truncated normal's
+# standard deviation at unit σ).
+_TRUNCATED_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def init_weights(model: torch.nn.Module,
+                 generator: torch.Generator | None = None) -> None:
+    """Initialise ``model`` for training as flax initialises the JAX model.
+
+    In distribution: every convolution, transposed convolution and dense
+    weight lecun-normal (a truncated normal of variance 1/fan_in), the
+    factorized prior's biases U(−½, ½), all drawn from ``generator``. As the
+    JAX package's constants: every bias 0, GroupNorm scales 1 and biases 0,
+    GDN β_r = 1 and γ_r = 0.1·I, the factorized prior's matrices, factors
+    and quantiles (``FactorizedPrior.reset_parameters``), the gains 1, and
+    the UNet's output convolution 0.
+    """
+    from tpucdc_torch.codec.entropy_models import FactorizedPrior
+    from tpucdc_torch.codec.transforms import GDN
+    from tpucdc_torch.ops.layers import Conv, ConvTranspose, Dense
+
+    done = set()
+    for name, mod in model.named_modules():
+        if isinstance(mod, (Conv, ConvTranspose, Dense)):
+            w = mod.weight
+            fan_in = w.numel() // w.shape[1 if isinstance(mod, ConvTranspose)
+                                          else 0]
+            std = fan_in ** -0.5 / _TRUNCATED_STD
+            w.copy_(torch.nn.init.trunc_normal_(
+                torch.empty(w.shape), 0.0, std, -2 * std, 2 * std,
+                generator=generator))
+            mod.bias.zero_()
+        elif isinstance(mod, GDN):
+            mod.beta_r.fill_(1.0)
+            mod.gamma_r.copy_(0.1 * torch.eye(mod.gamma_r.shape[0]))
+        elif isinstance(mod, FactorizedPrior):
+            mod.reset_parameters(generator)
+        else:
+            continue
+        done.update(f"{name}.{p}" if name else p
+                    for p, _ in mod.named_parameters(recurse=False))
+    for name, p in model.named_parameters():
+        if name in done:
+            continue
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf.endswith("scale") or leaf in ("gains", "inv_gains"):
+            p.fill_(1.0)
+        elif leaf.endswith("bias"):
+            p.zero_()
+        else:
+            raise ValueError(f"init_weights: no initialiser for {name}")
+    unet = getattr(model, "unet", None)
+    if unet is not None:
+        unet.conv_out.weight.zero_()
 
 
 @torch.no_grad()
