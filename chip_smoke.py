@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one CUDA card and check it: decode, encode,
-eval and the user-facing API and CLI.
+eval, the user-facing API and CLI, training, and the mesh paths.
 
 Runs the port (tpucdc_torch) only; imports nothing of JAX or tpucdc. Phases,
 in order; any failure raises, exits non-zero and prints no result line:
@@ -173,8 +173,22 @@ kernels (batch 2, 6 and 48; head widths 48 and 64; the 384×512 fixture plain
 and guided; the variable-rate model), found by one step of each. The last
 three lines are the card's name and power limit, the ``kernels`` JSON line,
 and ``{"ok": true, "device": {...}}``. Details also go to
-chiprun_out/chip_smoke.json. Phases 14 and 15 run after phase 13, each with
-its counts set to 0 just before the run it reads.
+chiprun_out/chip_smoke.json. Phases 14, 15 and 16 run after phase 13, each
+with its counts set to 0 just before the run it reads.
+
+ 16. mesh     — the card is one, so the mesh is a world of 1 over NCCL: the
+                ``TPUCDC_*`` variables (a free local port) make
+                ``maybe_init_distributed("cuda")`` start NCCL and
+                ``make_mesh()`` is (data 1, model 1) on cuda:0; phase 15's
+                recipe from a fresh init for 2 chunks with ``mesh=None`` and
+                with the mesh, in turns (N M M N): the 398 parameters and
+                the EMA bit-equal, 21 / 12 launches a mesh step; the same
+                with ``param_sharding="tensor"``, bit-equal to replicated;
+                phase 11's 48-tile decode with and without the mesh, same
+                noise, in turns: within 1 LSB, 93 / 60 launches; the
+                ``train`` verb in a process of its own under ``TPUCDC_*``
+                (4 steps), whose run directory ``load_runtime`` serves. The
+                phase must take at most 90 s.
 
 Usage: python3 chip_smoke.py
 """
@@ -1423,6 +1437,10 @@ def main() -> None:
                           REPORT["eval_api"]["cli"]["vr_target_bpp"])
     path_launches["train_step"] = trained
 
+    # ---- 16. mesh ----
+    path_launches.update(phase_mesh(torch, dev, port, rt16, big_blob,
+                                    img768))
+
     kernels = []
     for name in ("gn_silu", "attention"):
         p = per[name]
@@ -2162,6 +2180,215 @@ def phase_train(torch, dev, port, state, img768, discover, device_us,
     say("train", f"phase 15 took {rep['seconds']:.1f} s: " + ", ".join(
         f"{key} {val:.1f}" for key, val in times.items()) + f" ({card})")
     return step_launches
+
+
+# Phase 16: the mesh at world 1 over NCCL (the card is one).
+MESH_CHUNKS = 2
+MESH_VERB_STEPS = 4
+MESH_PHASE_S = 90.0
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_mesh(torch, dev, port, rt16, big_blob, img768) -> dict:
+    """Phase 16: the mesh paths on the card (see the module docstring).
+    Returns the launches of a mesh train step and of the mesh tiled decode,
+    by kernel."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+    from tpucdc_torch import api
+    from tpucdc_torch.data import kodak, train_crop_iterator
+    from tpucdc_torch.ops import _kernels
+    from tpucdc_torch.pipelines import train
+    from tpucdc_torch.presets import SERVING_OVERRIDES
+    from tpucdc_torch.runtime import make_mesh, maybe_init_distributed
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    rep = REPORT["mesh"] = {}
+    # (a) NCCL at world 1 from the TPUCDC_* variables. The train verb of
+    # phase 15 formed a world of 1 on an in-memory store; it goes first.
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    env = {"TPUCDC_COORDINATOR": f"127.0.0.1:{_free_port()}",
+           "TPUCDC_NUM_PROCESSES": "1", "TPUCDC_PROCESS_ID": "0"}
+    os.environ.update(env)
+    check(maybe_init_distributed(dev) is True,
+          "maybe_init_distributed did not initialise")
+    backend = dist.get_backend()
+    mesh = make_mesh(device=dev)
+    shape = tuple(mesh.mesh.shape)
+    on_card = dev.type == "cuda"
+    nccl = (".".join(map(str, torch.cuda.nccl.version())) if on_card
+            else "none")
+    say("mesh", f"maybe_init_distributed({dev.type!r}): backend {backend}, "
+        f"NCCL {nccl}, world {dist.get_world_size()}; make_mesh(): "
+        f"{mesh.mesh_dim_names} {shape} on {mesh.device_type}"
+        + (f":{torch.cuda.current_device()}" if on_card else ""))
+    check(backend == ("nccl" if on_card else "gloo") and shape == (1, 1)
+          and mesh.mesh_dim_names == ("data", "model")
+          and mesh.device_type == dev.type,
+          "the mesh is not (1, 1) over NCCL on the card")
+    rep.update(backend=backend, nccl=nccl, mesh=list(shape))
+
+    # (b) the recipe of phase 15 with and without the mesh, in turns.
+    recipe = {**SERVING_OVERRIDES, **RECIPE}
+    rcfg = api.build_config("flagship", recipe)
+    tc = rcfg.train
+    k = tc.steps_per_dispatch
+    n_steps = MESH_CHUNKS * k
+    cfg_n = api.build_config("flagship", {
+        **recipe, "train.steps": str(n_steps), "train.log_every": "1",
+        "train.warmup_steps": str(k)})
+    data_imgs = kodak().images
+
+    def run(cfg_, mesh_):
+        rows = []
+        data = train_crop_iterator(data_imgs, tc.batch_size, tc.crop_size,
+                                   seed=tc.seed, as_uint8=True)
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        _, st = train.fit(cfg_, data, mesh=mesh_, num_steps=n_steps,
+                          device=dev, writer=lambda s_, m: rows.append(m))
+        torch.cuda.synchronize()
+        return st, rows, dict(_kernels.LAUNCHES)
+
+    def bit_equal(a, b):
+        names = [n_ for n_, _ in a.model.named_parameters()]
+        return (len(names),
+                all(torch.equal(a.model.get_parameter(n_),
+                                b.model.get_parameter(n_)) for n_ in names),
+                all(torch.equal(a.ema_params[n_], b.ema_params[n_])
+                    for n_ in names))
+
+    sps = {"none": [], "mesh": []}
+    states = {}
+    t_part = time.perf_counter()
+    for label in ("none", "mesh", "mesh", "none"):
+        st, rows, launches = run(cfg_n, mesh if label == "mesh" else None)
+        # The last chunk's rate: the first carries the warm-up.
+        sps[label].append(rows[-1]["steps_per_sec"])
+        if label == "mesh":
+            mesh_launches = {n_: v // n_steps for n_, v in launches.items()}
+            check(all(v == mesh_launches[n_] * n_steps
+                      for n_, v in launches.items()),
+                  f"mesh fit launches {launches} over {n_steps} steps")
+        states.setdefault(label, st)
+        del st
+    n_params, params_equal, ema_equal = bit_equal(states["none"],
+                                                  states["mesh"])
+    say("mesh", f"recipe fit (batch {tc.batch_size}, crop {tc.crop_size}, K "
+        f"{k}, {MESH_CHUNKS} chunks, BF16_POLICY, fresh init at seed "
+        f"{tc.seed}): mesh=None against mesh=make_mesh(): {n_params} "
+        f"parameters bit-equal {params_equal}, EMA bit-equal {ema_equal}; "
+        f"launches a mesh step {mesh_launches}; steps a second of the last "
+        f"chunk in turns (N M M N): none {sps['none']}, mesh {sps['mesh']} "
+        f"({card})")
+    check(n_params == 398 and params_equal and ema_equal,
+          "the mesh fit differs from the one-card fit")
+    check(mesh_launches == {"gn_silu": 21, "attention": 12},
+          f"mesh train step launches {mesh_launches}")
+    del states["none"]
+    cfg_t = api.build_config("flagship", {
+        **recipe, "train.steps": str(n_steps), "train.log_every": "1",
+        "train.warmup_steps": str(k), "train.param_sharding": "tensor"})
+    st_t, _, _ = run(cfg_t, mesh)
+    _, tensor_params, tensor_ema = bit_equal(st_t, states["mesh"])
+    say("mesh", f"param_sharding='tensor' on the (1, 1) mesh, "
+        f"{MESH_CHUNKS} chunks: parameters bit-equal to the replicated "
+        f"run's {tensor_params}, EMA {tensor_ema} (every leaf is replicated "
+        f"at model 1)")
+    check(tensor_params and tensor_ema,
+          "the tensor-sharded fit differs from the replicated")
+    del st_t, states
+    rep["fit"] = {"steps_per_sec": sps, "launches_per_step": mesh_launches,
+                  "params_bit_equal": params_equal,
+                  "ema_bit_equal": ema_equal,
+                  "tensor_bit_equal": tensor_params and tensor_ema,
+                  "seconds": time.perf_counter() - t_part}
+
+    # (c) the 48-tile decode of phase 11 over the mesh, in turns.
+    t_part = time.perf_counter()
+    outs, ms = {}, {"none": [], "mesh": []}
+    for label in ("none", "mesh", "mesh", "none"):
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = rt16.decompress_tiled(
+            big_blob, mesh=mesh if label == "mesh" else None)
+        torch.cuda.synchronize()
+        ms[label].append(1e3 * (time.perf_counter() - t0))
+        n_ = dict(_kernels.LAUNCHES)
+        if label == "mesh":
+            tiled_launches = n_
+        outs[label] = out
+    worst, within1 = lsb_gap(outs["mesh"], outs["none"])
+    say("mesh", f"decompress_tiled of phase 11's 2048x1536 image (48 tiles), "
+        f"BF16_POLICY, seed-0 noise: mesh against none max|diff| {worst} "
+        f"LSB (bound 1), {100 * within1:.4f} % within 1, equal "
+        f"{np.array_equal(outs['mesh'], outs['none'])}; launches {tiled_launches}; "
+        f"ms in turns (N M M N): none {ms['none']}, mesh {ms['mesh']} "
+        f"({card})")
+    check(worst <= 1, "the mesh tiled decode differs from the one-card one")
+    check(tiled_launches == {"gn_silu": 93, "attention": 60},
+          f"mesh tiled decode launches {tiled_launches}")
+    rep["tiled"] = {"max_lsb": worst, "within1": within1, "ms": ms,
+                    "launches": tiled_launches,
+                    "seconds": time.perf_counter() - t_part}
+
+    # (d) the train verb in a process of its own under the TPUCDC_*
+    # variables (its own port: this process's store holds the first).
+    t_part = time.perf_counter()
+    verb = {**recipe, "train.steps": str(MESH_VERB_STEPS),
+            "train.steps_per_dispatch": str(MESH_VERB_STEPS),
+            "train.warmup_steps": "1", "train.log_every": "1",
+            "train.checkpoint_every": str(MESH_VERB_STEPS)}
+    with tempfile.TemporaryDirectory() as tmp:
+        child_env = {**os.environ, **env, "TPUCDC_COORDINATOR":
+                     f"127.0.0.1:{_free_port()}"}
+        out = subprocess.run(
+            [sys.executable, "-m", "tpucdc_torch", "train", "--preset",
+             "flagship", "--device", dev.type,
+             *[f"--set={key}={val}" for key, val in verb.items()],
+             "--steps", str(MESH_VERB_STEPS), "--workdir", tmp],
+            cwd=ROOT, env=child_env, capture_output=True, text=True,
+            timeout=300)
+        check(out.returncode == 0, f"train verb failed:\n{out.stderr[-3000:]}")
+        run_dir = api.run_dir(tmp, rcfg)
+        rows = (run_dir / "logs" / "metrics.jsonl").read_text().splitlines()
+        ckpts = sorted(p_.name for p_ in (run_dir / "ckpt").iterdir())
+        rt = api.load_runtime("flagship", checkpoint=str(run_dir),
+                              overrides=SERVING_OVERRIDES, device=dev)
+        blob = rt.compress(img768)
+        got = rt.decompress(blob)
+        _, y_dec, _, _ = rt._decode_symbols(blob)
+        check(got.shape == img768.shape and len(rows) == 1
+              and ckpts == [str(MESH_VERB_STEPS)],
+              f"train verb run directory: rows {rows}, ckpts {ckpts}")
+        verb_s = time.perf_counter() - t_part
+        say("mesh", f"python -m tpucdc_torch train under TPUCDC_* (world 1, "
+            f"{backend}), {MESH_VERB_STEPS} steps: {verb_s:.1f} s with the "
+            f"process's start; run directory {ckpts} + 1 log row; "
+            f"load_runtime on it compresses and decodes the 768x512 image "
+            f"({len(blob)} B, {tuple(got.shape)})")
+    rep["verb_s"] = verb_s
+    del rt
+    dist.destroy_process_group()
+    for key in env:
+        os.environ.pop(key, None)
+    rep["seconds"] = time.perf_counter() - t_phase
+    say("mesh", f"phase 16 took {rep['seconds']:.1f} s (bound "
+        f"{MESH_PHASE_S:g}) ({card})")
+    check(rep["seconds"] <= MESH_PHASE_S, "phase 16 took too long")
+    return {"mesh_train_step": mesh_launches, "mesh_tiled": tiled_launches}
 
 
 if __name__ == "__main__":

@@ -327,3 +327,66 @@ def rel_err(got, want) -> float:
     num = np.linalg.norm(got - want)
     den = np.linalg.norm(want)
     return float(num / den) if den else (0.0 if num == 0 else float("inf"))
+
+
+# ---- several ranks: gloo processes on the CPU ----
+
+_RANK_PRELUDE = """
+import datetime, sys
+sys.path.insert(0, {repo!r})
+import numpy as np
+import torch
+torch.set_num_threads(1)
+import torch.distributed as dist
+rank = int(sys.argv[1])
+dist.init_process_group("gloo", init_method={store!r}, rank=rank,
+                        world_size={world}, timeout=datetime.timedelta(seconds=60))
+inp = torch.load({inp!r}, weights_only=False)
+out = {{}}
+"""
+
+_RANK_EPILOGUE = """
+torch.save(out, {out!r} + f"{{rank}}.pt")
+dist.destroy_process_group()
+print("rank", rank, "ok", flush=True)
+"""
+
+
+def run_ranks(tmp_path, body: str, inputs: dict, world: int = 2,
+              env: dict | None = None) -> list:
+    """Run ``body`` in ``world`` fresh CPU processes joined by gloo (a
+    ``file://`` store in ``tmp_path``): each sees ``rank``, ``inp`` (the
+    ``inputs``, through ``torch.save``) and fills ``out``; returns every
+    rank's ``out``. The children import the port only and run at one
+    thread; a hang fails after 180 s instead of eating the suite."""
+    import subprocess
+    import sys
+    import textwrap
+
+    store = tmp_path / "store"
+    store.unlink(missing_ok=True)
+    torch.save(inputs, tmp_path / "in.pt")
+    script = (_RANK_PRELUDE.format(repo=str(ROOT),
+                                   store=f"file://{store}", world=world,
+                                   inp=str(tmp_path / "in.pt"))
+              + textwrap.dedent(body)
+              + _RANK_EPILOGUE.format(out=str(tmp_path / "out")))
+    child_env = {"PATH": "/usr/bin:/bin:/usr/local/bin", "HOME": str(tmp_path),
+                 "OMP_NUM_THREADS": "1", "CUDA_VISIBLE_DEVICES": "",
+                 **(env or {})}
+    procs = [subprocess.Popen([sys.executable, "-c", script, str(r)],
+                              env=child_env, cwd=tmp_path,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=180)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r} failed:\n{text[-3000:]}"
+    return [torch.load(tmp_path / f"out{r}.pt", weights_only=False)
+            for r in range(world)]

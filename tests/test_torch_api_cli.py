@@ -4,8 +4,7 @@ The config overrides and ``SERVING_OVERRIDES`` against the JAX package's
 ``apply_overrides`` and ``presets.flagship_serving()``; a tiny runtime's
 round trip; every case of tests/integration/test_cli.py but ``train``
 (tests/test_torch_fit.py runs it), mirrored on the port's CLI with
-``--device cpu``; what is not ported raises NotImplementedError naming its
-ROADMAP item.
+``--device cpu``; a directory without the port's checkpoint raises.
 
 Across the two CLIs, on JAX's tiny initialisation (``init_model`` with key
 0, which JAX's CLI builds without a checkpoint and the port reads from a
@@ -133,15 +132,12 @@ def test_load_runtime_roundtrip():
 
 
 def test_unported_entry_points_raise(tmp_path):
-    """Several cards are not ported and name the roadmap. A directory is
-    read as the port's run directory (tests/test_torch_fit.py trains one);
-    one without the port's checkpoint, such as the JAX package's orbax run
-    directory, raises."""
+    """A directory is read as the port's run directory
+    (tests/test_torch_fit.py trains one); one without the port's checkpoint,
+    such as the JAX package's orbax run directory, raises. (``eval --mesh``
+    runs: tests/test_torch_shard_decode.py.)"""
     with pytest.raises(FileNotFoundError, match="orbax"):
         api.load_runtime("tiny", checkpoint=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 16"):
-        main(["eval", "--preset", "tiny", "--mesh", "--device", "cpu",
-              "--workdir", str(tmp_path)])
 
 
 # ---- the CLI: tests/integration/test_cli.py's cases ----

@@ -211,8 +211,6 @@ def test_tiled_decode_errors(tiled_pair):
         trt.decompress_tiled(blob, tile=72, halo=16)
     with pytest.raises(ValueError, match="smaller than tile extent"):
         trt.decompress_tiled(blob, tile=128, halo=16)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        trt.decompress_tiled(blob, mesh="data")
 
 
 def test_large_flagship_denoiser_at_full_width():

@@ -61,13 +61,10 @@ def test_tiny_decompress_matches_jax(tiny_pair, steps, gamma):
 
 
 def test_unported_modes_raise(tiny_pair):
-    """What is still not ported raises and names the roadmap: the multi-card
-    branch of the tiled decode. The analytic rate estimate no longer does:
-    it gives JAX's. A header that asks for guidance decodes, to JAX's
-    pixels."""
+    """Nothing of these raises any more: the analytic rate estimate gives
+    JAX's, and a header that asks for guidance decodes, to JAX's pixels.
+    (The tiled decode over a mesh: tests/test_torch_shard_decode.py.)"""
     jrt, trt, blob = tiny_pair
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 16"):
-        trt.decompress_tiled(blob, mesh=object())
     flat = np.zeros((64, 64, 3), np.uint8)
     assert trt.estimate_bpp(flat) == pytest.approx(jrt.estimate_bpp(flat),
                                                    rel=1e-5)

@@ -180,13 +180,6 @@ def test_time_decode(runtimes, images):
     assert t["steps_per_sec"] == pytest.approx(2 / t["decode_s_median"])
 
 
-def test_mesh_is_not_ported(runtimes, images):
-    _, trt = runtimes
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 16"):
-        port_eval.evaluate_image(trt, images[0],
-                                 port_eval.EvalOptions(mesh=object()), None)
-
-
 def test_metric_logger(tmp_path, capsys):
     log = MetricLogger(tmp_path / "logs")
     log(3, {"loss": 0.5, "note": "skipped"})

@@ -5,8 +5,8 @@ streams and the ``train`` entry points, on the CPU at the tiny preset.
   at the checkpoint's batch) equals the uninterrupted run exactly; K = 2 steps
   a loop iteration equal K = 1; a total that K does not divide raises; a
   failing data iterator raises out of ``fit`` (which crops inline) and does
-  not hang; ``fault_inject_step`` exits with 42; several cards raise and
-  point at ROADMAP.md item 16.
+  not hang; ``fault_inject_step`` exits with 42 (several ranks:
+  tests/test_torch_dist_train.py).
 * ``Prefetcher`` (behind ``grain_crop_iterator``) relays its producer's
   exception and closes its thread.
 * ``CheckpointManager``: save, restore, ``latest_step``, ``max_to_keep``;
@@ -133,15 +133,6 @@ def test_producer_failure_raises_and_does_not_hang():
     finite = iter([next(_data(cfg)) for _ in range(3)])
     with pytest.raises(StopIteration):
         train.fit(cfg, finite, num_steps=4, device="cpu")
-
-
-def test_multi_card_raises():
-    cfg = _cfg()
-    with pytest.raises(NotImplementedError, match="item 16"):
-        train.fit(cfg, _data(cfg), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        train.create_state(_cfg(**{"train.param_sharding": "tensor"}),
-                           device="cpu")
 
 
 def test_fault_inject_step_exits_42(tmp_path):

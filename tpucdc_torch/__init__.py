@@ -8,9 +8,12 @@ DDPM sampling; ``decompress_tiled`` for large images; and the batch
 forms ``compress_many`` / ``decompress_many``. It evaluates (``eval``:
 PSNR, MS-SSIM, GMSD, the LPIPS and FID proxies, the R-D, latency and
 perceptual sweeps) and serves through ``api.load_runtime`` and
-``python -m tpucdc_torch compress|decompress|eval|rd-sweep``. It trains on
-one card (``api.train``, ``python -m tpucdc_torch train``,
-``pipelines.train.fit``), with checkpoints that ``load_runtime`` serves.
+``python -m tpucdc_torch compress|decompress|eval|rd-sweep``. It trains
+(``api.train``, ``python -m tpucdc_torch train``, ``pipelines.train.fit``),
+with checkpoints that ``load_runtime`` serves. Over several cards, one
+process each (``runtime.make_mesh``, ``torch.distributed``), it trains
+data-parallel with the ``"tensor"`` state sharding and shards the tiled
+decode (``parallel``).
 Fused GroupNorm+SiLU and attention are hand-written CUDA kernels, with a
 backward in PyTorch operations. The package
 imports PyTorch and never JAX or the tpucdc package. Entry points run on the

@@ -100,24 +100,42 @@ def train(preset: str = "tiny", steps: int = 1000,
     """R-D training on ``device`` (the card unless the caller passes "cpu")
     for ``steps`` steps, with checkpoints in ``run_dir(workdir)/ckpt`` and
     metrics in ``run_dir(workdir)/logs``; returns (model, final
-    TrainState)."""
+    TrainState).
+
+    As in the JAX package the run is always over a mesh of every rank:
+    ``runtime.maybe_init_distributed`` joins the world that the environment
+    names (torchrun, or ``TPUCDC_*``), else ``make_mesh`` forms a world of
+    1. Every rank calls ``train`` with the same arguments; only rank 0
+    writes the run directory.
+    """
+    import torch.distributed as dist
+
     from tpucdc_torch.data import eval_dataset, train_crop_iterator
     from tpucdc_torch.pipelines import train as train_lib
+    from tpucdc_torch.runtime import make_mesh, maybe_init_distributed
+    from tpucdc_torch.runtime.mesh import is_rank0
     from tpucdc_torch.utils import MetricLogger
     from tpucdc_torch.utils.checkpoint import CheckpointManager
 
     cfg = build_config(preset, overrides)
+    if not dist.is_initialized():
+        maybe_init_distributed(device)
+    mesh = make_mesh(device=device)
     wd = run_dir(workdir or cfg.workdir, cfg)
-    logger = MetricLogger(wd / "logs")
-    ckpt = CheckpointManager(wd / "ckpt")
+    logger = ckpt = None
+    if is_rank0():
+        logger = MetricLogger(wd / "logs")
+        ckpt = CheckpointManager(wd / "ckpt")
     ds = eval_dataset(dataset)
     data = train_crop_iterator(ds.images, cfg.train.batch_size,
                                cfg.train.crop_size, seed=cfg.train.seed,
                                as_uint8=True)
     try:
-        return train_lib.fit(cfg, data, writer=logger,
+        # fit calls the checkpointer on rank 0 alone.
+        return train_lib.fit(cfg, data, mesh=mesh, writer=logger,
                              checkpointer=lambda step, st: ckpt.save(step, st),
                              num_steps=steps, device=device)
     finally:
-        ckpt.close()
-        logger.close()
+        if ckpt is not None:
+            ckpt.close()
+            logger.close()

@@ -188,37 +188,46 @@ def cmd_eval(args):
     from tpucdc_torch.data import eval_dataset
     from tpucdc_torch.eval.harness import (EvalOptions, evaluate_dataset,
                                            step_guidance_sweep, time_decode)
+    from tpucdc_torch.runtime.mesh import is_rank0
     from tpucdc_torch.utils import MetricLogger
 
+    mesh = None
     if args.mesh:
-        raise NotImplementedError(
-            "eval --mesh (the tiled decode sharded over several cards) is "
-            "not ported yet; see ROADMAP.md, Queue 1 item 16")
+        # Join the launcher's world (and take this rank's card) before the
+        # runtime picks its device; every rank evaluates, rank 0 writes.
+        import torch.distributed as dist
+        from tpucdc_torch.runtime import make_mesh, maybe_init_distributed
+        if not dist.is_initialized():
+            maybe_init_distributed(args.device)
+        mesh = make_mesh(device=args.device)
     cfg, runtime = _load_runtime(args)
     ds = eval_dataset(args.dataset)
-    logger = MetricLogger(args.workdir or cfg.workdir)
+    logger = MetricLogger(args.workdir or cfg.workdir) if is_rank0() else None
+    on_row = logger.write_row if logger is not None else None
     opts = EvalOptions(steps=args.steps or cfg.sample.steps,
-                       tiled=args.tiled, compute_lpips=not args.no_lpips)
+                       tiled=args.tiled, mesh=mesh,
+                       compute_lpips=not args.no_lpips)
 
     if args.sweep == "perceptual":
         # LPIPS/FID over the step-count × guidance grid.
         rows = step_guidance_sweep(runtime, ds, presets.STEP_GRID,
                                    presets.GUIDANCE_GRID, opts,
-                                   on_row=logger.write_row)
-        for r in rows:
-            logger.write_row(r)
-        print(json.dumps(rows, default=float))
+                                   on_row=on_row)
+        out = rows
     elif args.sweep == "latency":
         # Decode latency and steps/s on the first image.
         blob = runtime.compress(ds.images[0])
-        t = time_decode(runtime, blob, steps=opts.steps)
-        logger.write_row(t)
-        print(json.dumps(t, default=float))
+        rows = [time_decode(runtime, blob, steps=opts.steps)]
+        out = rows[0]
     else:
-        res = evaluate_dataset(runtime, ds, opts, on_row=logger.write_row)
-        logger.write_row({"aggregate": res["aggregate"]})
-        print(json.dumps(res["aggregate"], default=float))
-    logger.close()
+        res = evaluate_dataset(runtime, ds, opts, on_row=on_row)
+        rows = [{"aggregate": res["aggregate"]}]
+        out = res["aggregate"]
+    if logger is not None:
+        for r in rows:
+            logger.write_row(r)
+        print(json.dumps(out, default=float))
+        logger.close()
 
 
 def cmd_rd_sweep(args):
@@ -321,8 +330,8 @@ def main(argv=None):
     sp.add_argument("--tiled", action="store_true")
     sp.add_argument("--no-lpips", action="store_true")
     sp.add_argument("--mesh", action="store_true",
-                    help="shard the tiled decode over all local cards "
-                         "(not ported yet)")
+                    help="shard the tiled decode's tiles over the ranks "
+                         "of the process group (one per card)")
     sp.add_argument("--sweep", default=None,
                     choices=["perceptual", "latency"])
     sp.set_defaults(fn=cmd_eval)

@@ -191,8 +191,9 @@ class TrainConfig:
     seed: int = 0
     # Debug fault injection: exit the process with code 42 at this step.
     fault_inject_step: int = -1
-    # Parameter placement over several cards: "replicated" or "tensor";
-    # only one card is supported so far (ROADMAP.md, Queue 1 item 16).
+    # Parameter placement over a mesh: "replicated", or "tensor" (the EMA
+    # and the optimizer moments sharded over the model axis,
+    # parallel/tp_rules.py).
     param_sharding: str = "replicated"
 
 

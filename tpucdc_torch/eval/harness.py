@@ -36,7 +36,8 @@ class EvalOptions:
     tiled: bool = False
     tile: int = 256
     halo: int = 32
-    # Tiles sharded over several cards: not ported (raises).
+    # A DeviceMesh (runtime.make_mesh): the tiled decode's tiles sharded
+    # over its data axis; every rank runs the eval.
     mesh: Any = None
     seed: int = 0
     compute_lpips: bool = True
@@ -50,10 +51,6 @@ def evaluate_image(runtime: CodecRuntime, img: np.ndarray,
                    opts: EvalOptions, perceptual: Optional[PerceptualMetric]
                    ) -> tuple[dict, np.ndarray]:
     """Compress and decompress one HWC uint8 image; (metrics row, recon)."""
-    if opts.mesh is not None:
-        raise NotImplementedError(
-            "EvalOptions.mesh (a decode sharded over several cards) is not "
-            "ported yet; see ROADMAP.md, Queue 1 item 16")
     h, w = img.shape[:2]
     n_pixels = h * w
 
@@ -63,7 +60,8 @@ def evaluate_image(runtime: CodecRuntime, img: np.ndarray,
     gen = _generator(runtime, opts.seed)
     if opts.tiled:
         recon = runtime.decompress_tiled(blob, generator=gen, tile=opts.tile,
-                                         halo=opts.halo, steps=opts.steps)
+                                         halo=opts.halo, mesh=opts.mesh,
+                                         steps=opts.steps)
     else:
         recon = runtime.decompress(blob, generator=gen, steps=opts.steps,
                                    eta=opts.eta, guidance=opts.guidance)

@@ -166,6 +166,48 @@ class CDCModel(nn.Module):
                 "x0_pred": x0_pred, "x0": x, "x_bar": x_bar,
                 "y": y, "y_tilde": y_tilde, "z": z, "quality": quality}
 
+    def training_draws(self, x_shape, num_timesteps: int, train: bool = True,
+                       generator: Optional[torch.Generator] = None,
+                       device=None) -> dict:
+        """Every draw ``forward(x, train=train, generator=generator)`` makes
+        for an x of ``x_shape``, made up front in ``forward``'s order and at
+        its shapes (y and z from g_a's 16× and h_a's further 4× "SAME"
+        downsampling): quality, u_z, u_y, keep, t (then the t-low randint
+        and uniform), ε. From the same generator the values are
+        ``forward``'s own, so a data-parallel rank that slices the global
+        batch's draws trains the trajectory of the whole batch."""
+        cfg = self.config
+        codec = cfg.codec
+        b, h, w, _ = x_shape
+        down = lambda n, f: -(-n // f)
+        y_shape = (b, down(h, 16), down(w, 16), codec.latent_channels)
+        z_shape = (b, down(y_shape[1], 4), down(y_shape[2], 4),
+                   codec.hyper_channels)
+
+        def uniform(shape):
+            return torch.rand(shape, generator=generator, device=device)
+
+        def randint(high):
+            return torch.randint(0, high, (b,), generator=generator,
+                                 device=device)
+
+        draws = {}
+        if codec.num_qualities > 1:
+            draws["quality"] = randint(codec.num_qualities)
+        if train:
+            draws["u_z"] = uniform(z_shape) - 0.5
+            draws["u_y"] = uniform(y_shape) - 0.5
+            if cfg.cond_dropout_prob > 0:
+                draws["keep"] = uniform((b,)) >= cfg.cond_dropout_prob
+        t = randint(num_timesteps)
+        if cfg.t_low_prob > 0.0:
+            t_low = randint(max(int(cfg.t_low_frac * num_timesteps), 1))
+            t = torch.where(uniform((b,)) < cfg.t_low_prob, t_low, t)
+        draws["t"] = t
+        draws["eps"] = torch.randn(tuple(x_shape), generator=generator,
+                                   device=device)
+        return draws
+
     def _entropy_params(self, y: torch.Tensor, z_tilde: torch.Tensor,
                         u_y: Optional[torch.Tensor]):
         """(ỹ, μ, σ): ỹ = y + u_y in training (``u_y`` given), else the

@@ -48,8 +48,9 @@ The coder tables are built from the model, or injected (``cdf_tables=``)
 from a sidecar that ``save_cdf_tables`` wrote, in the JAX package's format.
 ``estimate_bpp`` is the analytic rate (``CDCModel.rate_estimate`` plus the
 container's fixed bytes) without running the coder; ``compress_to_bpp(
-probe="estimate")`` bisects on it. The multi-card branch of the tiled decode
-(``mesh=``) raises NotImplementedError.
+probe="estimate")`` bisects on it. ``decompress_tiled(mesh=)`` shards the
+tile batch over the mesh's data axis (``parallel.sharded_sample``); every
+rank of the mesh calls it and gets the image.
 """
 
 from __future__ import annotations
@@ -68,9 +69,11 @@ from tpucdc_torch.entropy import (BitstreamHeader, RansCodec, read_bitstream,
                                   write_bitstream)
 from tpucdc_torch.model import CDCModel
 from tpucdc_torch.ops import make_schedule
-from tpucdc_torch.parallel import blend_tiles, make_tile_plan, split_tiles
+from tpucdc_torch.parallel import (blend_tiles, make_tile_plan,
+                                   sharded_sample, split_tiles)
 from tpucdc_torch.runtime import (DEFAULT_POLICY, F32_POLICY, Policy,
                                   pin_numerics, resolve_device, set_policy)
+from tpucdc_torch.runtime.mesh import DATA_AXIS, axis_size
 from tpucdc_torch.sampling import (ddim_sample, ddim_sample_blockcached,
                                    ddim_step_tables, ddpm_sample,
                                    make_batched_cfg_eps_fn)
@@ -877,13 +880,13 @@ class CodecRuntime:
         ``noise`` is one [tiles, e, e, 3] tensor (e = tile + 2·halo), drawn in
         one piece from ``generator`` (seed 0 on the runtime's device) when
         None. Guidance is 1 and the blend dial is the header's scalar γ (a v5
-        grid is laid out for the whole canvas and is not used here). ``mesh``
-        (tiles sharded over several cards) is not ported.
+        grid is laid out for the whole canvas and is not used here).
+
+        With ``mesh`` every rank calls it: the tiles are padded with repeats
+        of the last (and its ε) to a multiple of the data axis and decoded
+        by ``sharded_sample``, as the JAX package's mesh branch does: the
+        inverse gain first, the config's η and truncation, no block cache.
         """
-        if mesh is not None:
-            raise NotImplementedError(
-                "decompress_tiled(mesh=...) is not ported yet; see "
-                "ROADMAP.md, Queue 1 item 16")
         sample = self.config.sample
         y_hat, hdr = self.decode_latent(blob)
         ph = hdr.height + ((-hdr.height) % PAD_MULTIPLE)
@@ -902,16 +905,67 @@ class CodecRuntime:
         plan = make_tile_plan(ph, pw, tile=tile, halo=halo)
         y_tiles = torch.from_numpy(
             split_tiles(self._fetch(y_hat), plan, scale=16)).to(self.device)
-        # The continuous-quality path has no block-cached variant (as in
-        # the JAX package).
-        cache_period = (1 if hdr.quality_f_or_none is not None
-                        else sample.cache_period)
-        x_tiles = self._fetch(self._device_stage(
-            y_tiles, torch.zeros((), device=self.device), steps, sample.eta,
-            self._header_gamma(hdr, steps, grid=False), extent, extent,
-            noise=noise, generator=generator,
-            inv_gain=self._header_inv_gain(hdr), cache_period=cache_period))
+        gamma = self._header_gamma(hdr, steps, grid=False)
+        if mesh is not None:
+            x_tiles = self._fetch(self._sharded_tiles(
+                y_tiles, hdr, steps, gamma, extent, mesh, noise, generator))
+        else:
+            # The continuous-quality path has no block-cached variant (as
+            # in the JAX package).
+            cache_period = (1 if hdr.quality_f_or_none is not None
+                            else sample.cache_period)
+            x_tiles = self._fetch(self._device_stage(
+                y_tiles, torch.zeros((), device=self.device), steps,
+                sample.eta, gamma, extent, extent, noise=noise,
+                generator=generator, inv_gain=self._header_inv_gain(hdr),
+                cache_period=cache_period))
         # Blend the halos in float, then back to uint8.
         blended = blend_tiles(x_tiles.astype(np.float32), plan)
         out = np.clip(blended + 0.5, 0, 255).astype(np.uint8)
         return out[:hdr.height, :hdr.width]
+
+    @torch.inference_mode()
+    def _sharded_tiles(self, y_tiles: torch.Tensor, hdr: BitstreamHeader,
+                       steps: int, gamma, extent: int, mesh,
+                       noise: Optional[torch.Tensor],
+                       generator: Optional[torch.Generator]) -> torch.Tensor:
+        """The mesh branch of ``decompress_tiled``: uint8 [n, e, e, 3] on
+        every rank."""
+        inv_gain = self._header_inv_gain(hdr)
+        if inv_gain is not None:
+            # The sharded chain conditions on the tiles as given.
+            y_tiles = self.model.inv_gain(
+                y_tiles, torch.from_numpy(inv_gain).to(self.device))
+        if generator is None:
+            generator = torch.Generator(self.device).manual_seed(0)
+        n = y_tiles.shape[0]
+        if noise is None:
+            noise = torch.randn((n, extent, extent, 3), generator=generator,
+                                dtype=torch.float32, device=self.device)
+        noise = noise.to(self.device, torch.float32)
+        pad = (-n) % axis_size(mesh, DATA_AXIS)
+        if pad:
+            y_tiles = torch.cat([y_tiles, y_tiles[-1:].expand(
+                pad, *y_tiles.shape[1:])])
+            noise = torch.cat([noise, noise[-1:].expand(
+                pad, *noise.shape[1:])])
+        model = self.model
+        cond = {}
+
+        def model_apply(m, y_shard, x_t, t, x_bar=None):
+            # The conditioning of a shard is the same at every step: it is
+            # computed once, as XLA hoists it out of the JAX package's scan.
+            if cond.get("y") is not y_shard:
+                cond.update(y=y_shard, signal=m.cond_signal(y_shard))
+            cond_f, cond_t = cond["signal"]
+            return m.denoise(x_t, t, cond_f, cond_t, x_bar)
+
+        x_ref_fn = None
+        if self._synth:
+            x_ref_fn = lambda m, y_shard: m.synthesize(y_shard)
+        x0 = sharded_sample(
+            model_apply, model, self.schedule, mesh, y_tiles, noise,
+            (extent, extent), num_steps=steps, eta=self.config.sample.eta,
+            x_ref_fn=x_ref_fn, t_start=self._t_start(), blend_gamma=gamma,
+            prediction=self.config.model.prediction, generator=generator)
+        return _to_uint8(x0[:n])

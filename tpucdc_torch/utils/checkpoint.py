@@ -9,6 +9,11 @@ The EMA weights also go out as ``save_params_npz`` files
 
 The JAX package's run directories are orbax checkpoints, which need JAX to
 read; the port does not read them, and JAX does not read the port's.
+
+Over a mesh, ``pipelines.train.fit`` saves on rank 0 alone, after every
+rank has gathered a ``"tensor"`` state to full (``TrainState.state_dict``), so
+the file is the one a replicated run writes and either layout restores it
+(a sharded state keeps its slices).
 """
 
 from __future__ import annotations
@@ -59,8 +64,12 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def save(self, step: int, state, wait: bool = False) -> None:
+        """Write ``state`` (a state dict, or an object with
+        ``state_dict()``) as ``step`` on a thread."""
         self.wait_until_finished()
-        payload = _to_cpu(state.state_dict())
+        if not isinstance(state, dict):
+            state = state.state_dict()
+        payload = _to_cpu(state)
         self._writer = threading.Thread(target=self._write,
                                         args=(int(step), payload))
         self._writer.start()

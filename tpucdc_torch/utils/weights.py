@@ -145,6 +145,20 @@ def params_to_jax(state: dict) -> dict:
     return flat
 
 
+def jax_last_axis(name: str, ndim: int) -> int:
+    """The dim of the port's parameter ``name`` that holds the last axis of
+    the flax leaf it maps onto (the transposes of ``params_from_jax``): a
+    conv weight's (OIHW) and a dense weight's (out, in) dim 0, a transposed
+    conv weight's ([in, out, kh, kw]) dim 1, and the last dim of every
+    other leaf, which is stored as in JAX."""
+    module, _, leaf = name.rpartition(".")
+    if leaf == "weight" and ndim == 4 and _TRANSPOSED.match(module):
+        return 1
+    if leaf == "weight" and ndim in (2, 4):
+        return 0
+    return ndim - 1
+
+
 def save_params_npz(state: dict, path) -> None:
     """Write a state_dict as the JAX package's ``save_params_npz`` would
     write the same parameters: one compressed .npz, flax keystr keys."""
