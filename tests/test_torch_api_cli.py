@@ -282,6 +282,11 @@ def test_cli_profile_writes_a_trace(small_png, tmp_path, capsys):
           str(tmp_path / "trace")])
     capsys.readouterr()
     assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+    [line] = (tmp_path / "trace" / "spans.jsonl").read_text().splitlines()
+    request = json.loads(line)
+    assert request["name"] == "codec.decompress" and request["profiled"]
+    names = [s["name"] for s in request["spans"]]
+    assert names.count("codec.fetch") == 2 and "codec.synth" in names
     with profile_trace(None):
         pass
 

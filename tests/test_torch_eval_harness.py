@@ -24,7 +24,7 @@ from tests._torch_jax_helpers import (  # noqa: F401
 from tpucdc_torch import CodecRuntime, F32_POLICY
 from tpucdc_torch.data import EvalDataset
 from tpucdc_torch.pipelines import evaluate as port_eval
-from tpucdc_torch.utils import MetricLogger, code_sha, timed_block
+from tpucdc_torch.utils import MetricLogger, code_sha
 
 
 @pytest.fixture(scope="module")
@@ -195,13 +195,6 @@ def test_metric_logger(tmp_path, capsys):
     assert lines[1]["psnr"] == 30.5
     assert lines[2]["code_sha"] == "abc"
     assert "[step 3] loss=0.5" in capsys.readouterr().err
-
-
-def test_timed_block_on_the_cpu():
-    sink = {}
-    with timed_block(sink, "t"):
-        sum(range(1000))
-    assert sink["t"] >= 0
 
 
 def test_from_model_range_matches_jax():

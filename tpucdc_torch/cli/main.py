@@ -16,7 +16,8 @@ artifacts/flagship_params.npz``. ``--checkpoint`` reads a
 latest EMA weights); without one the weights are drawn from seed 0
 (``api.load_model``). ``--device`` picks the card (``cuda``, the
 default) or ``cpu``. ``--profile DIR`` writes a torch.profiler trace of the
-decode or of the training run. ``--seed`` seeds the decode's generator.
+decode or of the training run (``trace.json``) and the port's spans of its
+requests (``spans.jsonl``). ``--seed`` seeds the decode's generator.
 """
 
 from __future__ import annotations

@@ -24,6 +24,7 @@ from tpucdc_torch.diffusion.blocks import (AttentionBlock, Downsample, GNSiLU,
 from tpucdc_torch.ops import sinusoidal_time_embed
 from tpucdc_torch.ops.layers import Conv, Dense
 from tpucdc_torch.runtime import DEFAULT_POLICY, Policy
+from tpucdc_torch.utils.profiling import span
 
 
 def _space_to_depth(x: torch.Tensor, p: int) -> torch.Tensor:
@@ -150,30 +151,35 @@ class UNet(nn.Module):
 
     def _attend(self, li, bi, h, cond_tokens, attn, xattn):
         if li in self.config.attn_levels:
-            h = attn[li][bi](h)
-            if cond_tokens is not None:
-                h = xattn[li][bi](h, cond_tokens)
+            with span("unet.attn"):
+                h = attn[li][bi](h)
+                if cond_tokens is not None:
+                    h = xattn[li][bi](h, cond_tokens)
         return h
 
     def _down_level(self, li, h, temb, cond_tokens, skips):
         for bi in range(self.config.num_res_blocks):
-            h = self.down_res[li][bi](h, temb)
+            with span("unet.res"):
+                h = self.down_res[li][bi](h, temb)
             h = self._attend(li, bi, h, cond_tokens, self.down_attn,
                              self.down_xattn)
             skips.append(h)
         if li != len(self.config.channel_mult) - 1:
-            h = self.downsamplers[li](h)
+            with span("unet.resample"):
+                h = self.downsamplers[li](h)
             skips.append(h)
         return h
 
     def _up_level(self, li, h, temb, cond_tokens, skips):
         for bi in range(self.config.num_res_blocks + 1):
-            h = torch.cat([h, skips.pop()], dim=-1)
-            h = self.up_res[li][bi](h, temb)
+            with span("unet.res"):
+                h = torch.cat([h, skips.pop()], dim=-1)
+                h = self.up_res[li][bi](h, temb)
             h = self._attend(li, bi, h, cond_tokens, self.up_attn,
                              self.up_xattn)
         if li != 0:
-            h = self.upsamplers[li - 1](h)
+            with span("unet.resample"):
+                h = self.upsamplers[li - 1](h)
         return h
 
     def _deep(self, h, temb, cond_tokens):
@@ -190,11 +196,14 @@ class UNet(nn.Module):
         skips = [h]
         for li in range(split, n_levels):
             h = self._down_level(li, h, temb, cond_tokens, skips)
-        h = self.mid_res1(h, temb)
-        h = self.mid_attn(h)
-        if cond_tokens is not None:
-            h = self.mid_xattn(h, cond_tokens)
-        h = self.mid_res2(h, temb)
+        with span("unet.res"):
+            h = self.mid_res1(h, temb)
+        with span("unet.attn"):
+            h = self.mid_attn(h)
+            if cond_tokens is not None:
+                h = self.mid_xattn(h, cond_tokens)
+        with span("unet.res"):
+            h = self.mid_res2(h, temb)
         for li in reversed(range(split, n_levels)):
             h = self._up_level(li, h, temb, cond_tokens, skips)
         if skips:
@@ -219,8 +228,9 @@ class UNet(nn.Module):
         if cond_tokens is not None:
             cond_tokens = pol.cast_to_compute(cond_tokens)
 
-        temb = self._temb(t)
-        h = self._stem(x_t, cond_features)
+        with span("unet.stem"):
+            temb = self._temb(t)
+            h = self._stem(x_t, cond_features)
 
         split = cfg.split_level
         skips = [h]                  # the conv_in skip: up level 0's last pop
@@ -241,9 +251,10 @@ class UNet(nn.Module):
         if skips:
             raise RuntimeError("UNet skip stack not consumed")
 
-        h = self.norm_out(h)
-        h = self.conv_out(h, pol.compute_dtype)
-        out = _depth_to_space(h, cfg.patch_size).to(torch.float32)
+        with span("unet.out"):
+            h = self.norm_out(h)
+            h = self.conv_out(h, pol.compute_dtype)
+            out = _depth_to_space(h, cfg.patch_size).to(torch.float32)
         if return_cache:
             return out, deep_out.to(torch.float32)
         return out

@@ -12,6 +12,7 @@ import numpy as np
 
 from tpucdc_torch.entropy import _build
 from tpucdc_torch.entropy import rans_py
+from tpucdc_torch.utils.profiling import span
 
 _lib = None
 _lib_checked = False
@@ -69,6 +70,12 @@ class RansCodec:
         self.native = use_native
 
     def encode(self, values, indexes) -> bytes:
+        with span("rans.encode", symbols=np.size(values)) as s:
+            data = self._encode(values, indexes)
+            s.add("bytes", len(data))
+            return data
+
+    def _encode(self, values, indexes) -> bytes:
         values = _as_i32(values).ravel()
         indexes = _as_i32(indexes).ravel()
         if values.shape != indexes.shape:
@@ -96,6 +103,10 @@ class RansCodec:
         return out[:n].tobytes()
 
     def decode(self, data: bytes, indexes) -> np.ndarray:
+        with span("rans.decode", symbols=np.size(indexes), bytes=len(data)):
+            return self._decode(data, indexes)
+
+    def _decode(self, data: bytes, indexes) -> np.ndarray:
         indexes = _as_i32(indexes)
         shape = indexes.shape
         flat = indexes.ravel()

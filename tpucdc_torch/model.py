@@ -26,6 +26,7 @@ from tpucdc_torch.codec.quantization import quantize_dequantize, ste_round
 from tpucdc_torch.config import ModelConfig
 from tpucdc_torch.diffusion import ConditioningHead, UNet
 from tpucdc_torch.runtime import DEFAULT_POLICY, Policy
+from tpucdc_torch.utils.profiling import span
 
 
 class CDCModel(nn.Module):
@@ -88,79 +89,86 @@ class CDCModel(nn.Module):
             return torch.rand(shape, generator=generator, device=x.device)
 
         nq = cfg.codec.num_qualities
-        if nq > 1 and quality is None:
-            quality = draw("quality", lambda: torch.randint(
-                0, nq, (b,), generator=generator, device=x.device))
-        y = self.g_a(x)
-        if nq > 1:
-            y = y * self.gains[quality.long()][:, None, None, :]
-        z = self.h_a(y)
-        if train:
-            z_tilde = z + draw("u_z", lambda: uniform(z.shape) - 0.5)
-            u_y = draw("u_y", lambda: uniform(y.shape) - 0.5)
-        else:
-            med = self.factorized.medians().reshape(1, 1, 1, -1)
-            z_tilde = ste_round(z - med) + med
-            u_y = None
-        lik_z = self.factorized(z_tilde)
-        y_tilde, means, scales = self._entropy_params(y, z_tilde, u_y)
-        lik_y = GaussianConditional().likelihood(y_tilde, means, scales)
-
-        y_for_cond = y_tilde
-        if nq > 1:
-            y_for_cond = (y_tilde
-                          * self.inv_gains[quality.long()][:, None, None, :])
-        x_bar = self.g_s(y_for_cond) if cfg.codec.synthesis else None
-        cond_f, cond_t = self.cond_head(y_for_cond)
-        x_bar_in = x_bar
-        if train and cfg.cond_dropout_prob > 0:
-            # Classifier-free guidance training: zero the conditioning of a
-            # random subset, so the UNet learns an unconditional branch.
-            keep = draw("keep", lambda: uniform((b,))
-                        >= cfg.cond_dropout_prob)
-            cond_f = cond_f * keep[:, None, None, None].to(cond_f.dtype)
-            cond_t = cond_t * keep[:, None, None].to(cond_t.dtype)
-            if x_bar is not None:
-                x_bar_in = x_bar * keep[:, None, None, None].to(x_bar.dtype)
-
-        T = schedule_tables["sqrt_ab"].shape[0]
-
-        def draw_t():
-            t = torch.randint(0, T, (b,), generator=generator,
-                              device=x.device)
-            if cfg.t_low_prob > 0.0:
-                # Low-t bias: concentrate refiner training on the noise
-                # range that truncated serving visits.
-                t_low = torch.randint(0, max(int(cfg.t_low_frac * T), 1),
-                                      (b,), generator=generator,
-                                      device=x.device)
-                t = torch.where(uniform((b,)) < cfg.t_low_prob, t_low, t)
-            return t
-        t = draw("t", draw_t)
-        eps = draw("eps", lambda: torch.randn(
-            x.shape, generator=generator, device=x.device))
-        sab = schedule_tables["sqrt_ab"][t.long()].reshape(-1, 1, 1, 1)
-        s1mab = schedule_tables["sqrt_1mab"][t.long()].reshape(-1, 1, 1, 1)
-        x_t = sab * x + s1mab * eps
-        unet_in = (x_t if x_bar_in is None
-                   else torch.cat([x_t, x_bar_in.to(x_t.dtype)], dim=-1))
-        net_out = self.unet(unet_in, t, cond_f, cond_t)
-
-        bpp_y, bpp_z = self._bpp(x, lik_y, lik_z)
-        if cfg.prediction in ("x0", "residual"):
-            # x₀ is the net output, or x̄ plus it ("residual"); x̄ is
-            # detached there, so the refiner's terms do not reach g_s, g_a
-            # and the entropy models. ε is derived for the metric only, with
-            # √(1−ᾱ) floored, and detached.
-            if cfg.prediction == "residual":
-                x0_pred = x_bar.detach() + net_out
+        with span("model.analysis"):
+            if nq > 1 and quality is None:
+                quality = draw("quality", lambda: torch.randint(
+                    0, nq, (b,), generator=generator, device=x.device))
+            y = self.g_a(x)
+            if nq > 1:
+                y = y * self.gains[quality.long()][:, None, None, :]
+            z = self.h_a(y)
+        with span("model.entropy"):
+            if train:
+                z_tilde = z + draw("u_z", lambda: uniform(z.shape) - 0.5)
+                u_y = draw("u_y", lambda: uniform(y.shape) - 0.5)
             else:
-                x0_pred = net_out
-            eps_hat = ((x_t - sab * x0_pred)
-                       / torch.clamp_min(s1mab, 5e-2)).detach()
-        else:
-            eps_hat = net_out
-            x0_pred = (x_t - s1mab * eps_hat) / torch.clamp_min(sab, 1e-3)
+                med = self.factorized.medians().reshape(1, 1, 1, -1)
+                z_tilde = ste_round(z - med) + med
+                u_y = None
+            lik_z = self.factorized(z_tilde)
+            y_tilde, means, scales = self._entropy_params(y, z_tilde, u_y)
+            lik_y = GaussianConditional().likelihood(y_tilde, means, scales)
+
+        with span("model.synthesis"):
+            y_for_cond = y_tilde
+            if nq > 1:
+                inv = self.inv_gains[quality.long()]
+                y_for_cond = y_tilde * inv[:, None, None, :]
+            x_bar = self.g_s(y_for_cond) if cfg.codec.synthesis else None
+            cond_f, cond_t = self.cond_head(y_for_cond)
+            x_bar_in = x_bar
+            if train and cfg.cond_dropout_prob > 0:
+                # Classifier-free guidance training: zero the conditioning
+                # of a random subset, so the UNet learns an unconditional
+                # branch.
+                keep = draw("keep", lambda: uniform((b,))
+                            >= cfg.cond_dropout_prob)
+                keep4 = keep[:, None, None, None]
+                cond_f = cond_f * keep4.to(cond_f.dtype)
+                cond_t = cond_t * keep[:, None, None].to(cond_t.dtype)
+                if x_bar is not None:
+                    x_bar_in = x_bar * keep4.to(x_bar.dtype)
+
+        with span("model.unet"):
+            T = schedule_tables["sqrt_ab"].shape[0]
+
+            def draw_t():
+                t = torch.randint(0, T, (b,), generator=generator,
+                                  device=x.device)
+                if cfg.t_low_prob > 0.0:
+                    # Low-t bias: concentrate refiner training on the noise
+                    # range that truncated serving visits.
+                    t_low = torch.randint(0, max(int(cfg.t_low_frac * T), 1),
+                                          (b,), generator=generator,
+                                          device=x.device)
+                    t = torch.where(uniform((b,)) < cfg.t_low_prob, t_low, t)
+                return t
+            t = draw("t", draw_t)
+            eps = draw("eps", lambda: torch.randn(
+                x.shape, generator=generator, device=x.device))
+            sab = schedule_tables["sqrt_ab"][t.long()].reshape(-1, 1, 1, 1)
+            s1mab = schedule_tables["sqrt_1mab"][t.long()].reshape(-1, 1, 1, 1)
+            x_t = sab * x + s1mab * eps
+            unet_in = (x_t if x_bar_in is None
+                       else torch.cat([x_t, x_bar_in.to(x_t.dtype)], dim=-1))
+            net_out = self.unet(unet_in, t, cond_f, cond_t)
+
+        with span("model.rate"):
+            bpp_y, bpp_z = self._bpp(x, lik_y, lik_z)
+            if cfg.prediction in ("x0", "residual"):
+                # x₀ is the net output, or x̄ plus it ("residual"); x̄ is
+                # detached there, so the refiner's terms do not reach g_s,
+                # g_a and the entropy models. ε is derived for the metric
+                # only, with √(1−ᾱ) floored, and detached.
+                if cfg.prediction == "residual":
+                    x0_pred = x_bar.detach() + net_out
+                else:
+                    x0_pred = net_out
+                eps_hat = ((x_t - sab * x0_pred)
+                           / torch.clamp_min(s1mab, 5e-2)).detach()
+            else:
+                eps_hat = net_out
+                x0_pred = (x_t - s1mab * eps_hat) / torch.clamp_min(sab, 1e-3)
         return {"eps": eps, "eps_hat": eps_hat, "t": t,
                 "bpp_y": bpp_y, "bpp_z": bpp_z,
                 "x0_pred": x0_pred, "x0": x, "x_bar": x_bar,

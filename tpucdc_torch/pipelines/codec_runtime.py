@@ -77,6 +77,7 @@ from tpucdc_torch.runtime.mesh import DATA_AXIS, axis_size
 from tpucdc_torch.sampling import (ddim_sample, ddim_sample_blockcached,
                                    ddim_step_tables, ddpm_sample,
                                    make_batched_cfg_eps_fn)
+from tpucdc_torch.utils.profiling import span
 
 PAD_MULTIPLE = 64  # g_a 16× · h_a 4×
 
@@ -200,7 +201,8 @@ class CodecRuntime:
     @staticmethod
     def _fetch(t: torch.Tensor) -> np.ndarray:
         """Device → host; every transfer of the coding path goes through here."""
-        return t.cpu().numpy()
+        with span("codec.fetch", bytes=t.numel() * t.element_size()):
+            return t.cpu().numpy()
 
     def _fetch_later(self, *tensors: torch.Tensor):
         """Start device → host copies without waiting; returns ``wait()``,
@@ -209,7 +211,7 @@ class CodecRuntime:
         an event marks their end, so work queued behind them is not waited
         for."""
         if self.device.type != "cuda":
-            arrays = [t.numpy() for t in tensors]
+            arrays = [self._fetch(t) for t in tensors]
             return lambda: arrays
         pinned = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(
             t, non_blocking=True) for t in tensors]
@@ -217,8 +219,10 @@ class CodecRuntime:
         done.record()
 
         def wait():
-            done.synchronize()
-            return [b.numpy() for b in pinned]
+            with span("codec.fetch", bytes=sum(
+                    b.numel() * b.element_size() for b in pinned)):
+                done.synchronize()
+                return [b.numpy() for b in pinned]
         return wait
 
     def quality_gains(self, quality: float):
@@ -297,7 +301,8 @@ class CodecRuntime:
 
         Returns (header, z symbols, the y streams, padded (h, w)).
         """
-        hdr, streams = read_bitstream(blob)
+        with span("codec.parse", bytes=len(blob)):
+            hdr, streams = read_bitstream(blob)
         want = 1 + {"hyperprior": 1, "checkerboard": 2,
                     "channel-ar": self._groups,
                     "space-channel": 2 * self._groups}[self._context]
@@ -324,8 +329,9 @@ class CodecRuntime:
 
     def _hyper_stage(self, z_sym: np.ndarray):
         """z symbols → (μ on the device, uint8 row indexes on the host)."""
-        means, idx = self._params(self.model.hyper_decode,
-                                  self._z_hat(z_sym))
+        with span("codec.hyper"):
+            means, idx = self._params(self.model.hyper_decode,
+                                      self._z_hat(z_sym))
         return means, self._fetch(idx)
 
     @torch.inference_mode()
@@ -366,10 +372,12 @@ class CodecRuntime:
             return sym
 
         if self._context == "hyperprior":
-            means, idx = self._hyper_stage(z_sym)
-            return code(y, means, idx), means, out
+            with span("codec.y_pass"):
+                means, idx = self._hyper_stage(z_sym)
+                return code(y, means, idx), means, out
 
-        feats = model.hyper_features(self._z_hat(z_sym))
+        with span("codec.hyper"):
+            feats = model.hyper_features(self._z_hat(z_sym))
         am = torch.from_numpy(
             checkerboard_mask(hy, wy, anchor=True)[..., 0] > 0).to(dev)
         nam = ~am
@@ -378,13 +386,15 @@ class CodecRuntime:
 
         def parity_passes(y_part, anchor_fn, nonanchor_fn):
             """Anchors, then non-anchors given the decoded anchors."""
-            m_a, idx_a = self._params(anchor_fn)
-            sym_a = code(y_part, m_a, self._fetch(idx_a[:, am]), am)
-            # int32 + f32 in f32: the sum of a small integer and an f32
-            # rounds as the f64 sum cast back to f32 does.
-            y_anchor = (sym_a.to(torch.float32) + m_a) * amf
-            m_na, idx_na = self._params(nonanchor_fn, y_anchor)
-            sym_na = code(y_part, m_na, self._fetch(idx_na[:, nam]), nam)
+            with span("codec.y_pass"):
+                m_a, idx_a = self._params(anchor_fn)
+                sym_a = code(y_part, m_a, self._fetch(idx_a[:, am]), am)
+                # int32 + f32 in f32: the sum of a small integer and an f32
+                # rounds as the f64 sum cast back to f32 does.
+                y_anchor = (sym_a.to(torch.float32) + m_a) * amf
+            with span("codec.y_pass"):
+                m_na, idx_na = self._params(nonanchor_fn, y_anchor)
+                sym_na = code(y_part, m_na, self._fetch(idx_na[:, nam]), nam)
             return (sym_a * ami + sym_na * (1 - ami),
                     m_a * amf + m_na * (1 - amf))
 
@@ -402,9 +412,10 @@ class CodecRuntime:
                       else feats.new_zeros((1, hy, wy, 0)))
             y_g = y[..., g * mg:(g + 1) * mg] if encoding else None
             if self._context == "channel-ar":
-                mean_g, idx_g = self._params(model.ctx_group_params, g,
-                                             feats, y_prev)
-                sym_g = code(y_g, mean_g, self._fetch(idx_g))
+                with span("codec.y_pass"):
+                    mean_g, idx_g = self._params(model.ctx_group_params, g,
+                                                 feats, y_prev)
+                    sym_g = code(y_g, mean_g, self._fetch(idx_g))
             else:
                 sym_g, mean_g = parity_passes(
                     y_g, lambda: model.sc_anchor_params(g, feats, y_prev),
@@ -417,8 +428,9 @@ class CodecRuntime:
 
     def _decode_symbols(self, blob: bytes):
         """Bitstream → (header, ŷ symbols [device], μ [device], padded hw)."""
-        hdr, z_sym, y_streams, (ph, pw) = self._host_z_stage(blob)
-        y_sym, means, _ = self._y_passes(z_sym, streams=y_streams)
+        with span("codec.decode_symbols"):
+            hdr, z_sym, y_streams, (ph, pw) = self._host_z_stage(blob)
+            y_sym, means, _ = self._y_passes(z_sym, streams=y_streams)
         return hdr, y_sym, means, (ph, pw)
 
     @torch.inference_mode()
@@ -442,17 +454,44 @@ class CodecRuntime:
         DDIM with η > 0); what is not given is drawn from ``generator``
         (seed 0 on the runtime's device when None).
         """
-        y_hat = y_sym.to(torch.float32) + means
-        if inv_gain is not None:
-            y_hat = self.model.inv_gain(
-                y_hat, torch.from_numpy(inv_gain).to(self.device))
-        cond_f, cond_t = self.model.cond_signal(y_hat)
-        x_bar = None
-        if self._synth:
-            x_bar = self.model.synthesize(y_hat)
-            if steps == 0:
-                return _to_uint8(x_bar)
-        shape = (y_hat.shape[0], ph, pw, 3)
+        with span("codec.device_stage"):
+            with span("codec.cond"):
+                y_hat = y_sym.to(torch.float32) + means
+                if inv_gain is not None:
+                    y_hat = self.model.inv_gain(
+                        y_hat, torch.from_numpy(inv_gain).to(self.device))
+                cond_f, cond_t = self.model.cond_signal(y_hat)
+            x_bar = None
+            if self._synth:
+                with span("codec.synth"):
+                    x_bar = self.model.synthesize(y_hat)
+                if steps == 0:
+                    with span("codec.blend"):
+                        return _to_uint8(x_bar)
+            shape = (y_hat.shape[0], ph, pw, 3)
+            x0 = self._sample(cond_f, cond_t, x_bar, shape, steps, eta, noise,
+                              generator, guidance, cache_period, step_noise)
+            with span("codec.blend"):
+                if x_bar is not None:
+                    if np.ndim(gamma) == 2:
+                        # Per-tile γ grid (v5), bilinearly upsampled to the
+                        # padded canvas as jax.image.resize(..., "bilinear")
+                        # does.
+                        g = torch.as_tensor(np.asarray(gamma, np.float32),
+                                            device=self.device)
+                        g = F.interpolate(g[None, None], size=(ph, pw),
+                                          mode="bilinear",
+                                          align_corners=False)
+                        g = g[0, 0][None, :, :, None]
+                    else:
+                        g = float(np.float32(gamma))
+                    x0 = x_bar + g * (x0 - x_bar)
+                return _to_uint8(x0)
+
+    def _sample(self, cond_f, cond_t, x_bar, shape, steps: int, eta: float,
+                noise, generator, guidance: float, cache_period: int,
+                step_noise) -> torch.Tensor:
+        """The sampler of ``_device_stage``: x₀ [B, ph, pw, 3] in f32."""
         if generator is None:
             generator = torch.Generator(self.device).manual_seed(0)
         model = self.model
@@ -475,9 +514,9 @@ class CodecRuntime:
         if self.config.sample.sampler == "ddpm":
             if pred != "eps":
                 raise ValueError("ddpm sampler supports eps-prediction only")
-            x0 = ddpm_sample(net_fn, self.schedule, shape, **draws)
-        elif cache_period > 1 and not use_cfg:
-            x0 = ddim_sample_blockcached(
+            return ddpm_sample(net_fn, self.schedule, shape, **draws)
+        if cache_period > 1 and not use_cfg:
+            return ddim_sample_blockcached(
                 lambda x_t, t: model.denoise_fresh(x_t, t, cond_f, cond_t,
                                                    x_bar),
                 lambda x_t, t, cache: model.denoise_cached(
@@ -486,24 +525,9 @@ class CodecRuntime:
                 cache_period=cache_period, x_ref=x_bar,
                 tables=self._decode_tables(steps, eta), prediction=pred,
                 **draws)
-        else:
-            x0 = ddim_sample(net_fn, self.schedule, shape, num_steps=steps,
-                             x_ref=x_bar,
-                             tables=self._decode_tables(steps, eta),
-                             prediction=pred, **draws)
-        if x_bar is not None:
-            if np.ndim(gamma) == 2:
-                # Per-tile γ grid (v5), bilinearly upsampled to the padded
-                # canvas as jax.image.resize(..., "bilinear") does.
-                g = torch.as_tensor(np.asarray(gamma, np.float32),
-                                    device=self.device)
-                g = F.interpolate(g[None, None], size=(ph, pw),
-                                  mode="bilinear", align_corners=False)
-                g = g[0, 0][None, :, :, None]
-            else:
-                g = float(np.float32(gamma))
-            x0 = x_bar + g * (x0 - x_bar)
-        return _to_uint8(x0)
+        return ddim_sample(net_fn, self.schedule, shape, num_steps=steps,
+                           x_ref=x_bar, tables=self._decode_tables(steps, eta),
+                           prediction=pred, **draws)
 
     def _header_gamma(self, hdr: BitstreamHeader, steps: int, grid=True):
         """The blend dial a bitstream asks for: the v5 grid (a refined decode
@@ -569,19 +593,23 @@ class CodecRuntime:
         ``decompress`` draws by default, so a later served decode on the
         same kind of device reproduces the scored reconstruction.
         """
-        q = self._resolve_quality(quality_id, quality)
-        padded, (h, w) = pad_image(img_u8)
-        x = torch.from_numpy(to_model_range(padded))[None].to(self.device)
-        y, z_sym = self._analysis(x, q)
-        z_sym = self._fetch(z_sym)
-        _, _, y_streams = self._y_passes(z_sym, y=y)
-        z_bytes = self.z_codec.encode(z_sym, self._z_rows(z_sym.shape))
-        blob = write_bitstream(self._make_header(h, w, q),
-                               [z_bytes] + y_streams)
-        if optimize_gamma:
-            blob = self._optimize_gamma(blob, img_u8, optimize_gamma,
-                                        noise, generator)
-        return blob
+        with span("codec.compress"):
+            q = self._resolve_quality(quality_id, quality)
+            with span("codec.analysis"):
+                padded, (h, w) = pad_image(img_u8)
+                x = torch.from_numpy(to_model_range(padded))[None].to(
+                    self.device)
+                y, z_sym = self._analysis(x, q)
+            z_sym = self._fetch(z_sym)
+            _, _, y_streams = self._y_passes(z_sym, y=y)
+            z_bytes = self.z_codec.encode(z_sym, self._z_rows(z_sym.shape))
+            with span("codec.container"):
+                blob = write_bitstream(self._make_header(h, w, q),
+                                       [z_bytes] + y_streams)
+            if optimize_gamma:
+                blob = self._optimize_gamma(blob, img_u8, optimize_gamma,
+                                            noise, generator)
+            return blob
 
     def compress_to_bpp(self, img_u8: np.ndarray, target_bpp: float, *,
                         tol: float = 0.03, max_iters: int = 8,
@@ -613,21 +641,23 @@ class CodecRuntime:
             blob = self.compress(img_u8, quality=q)
             return len(blob) * 8.0 / npix, blob
 
-        if probe == "encode":
-            q, bpp, blob = self._bisect_quality(encode_at, target_bpp, tol,
-                                                max_iters)
-        else:
-            # Bisect on the analytic rate; the padded image is uploaded once
-            # for every probe, and the coder runs once, at the end.
-            padded, (h, w) = pad_image(img_u8)
-            x = torch.from_numpy(to_model_range(padded))[None].to(self.device)
-            q, _, _ = self._bisect_quality(
-                lambda q: (self._estimate_bpp_device(x, (h, w), q), None),
-                target_bpp, tol, max_iters)
-            bpp, blob = encode_at(q)
-        if optimize_gamma:
-            blob = self._optimize_gamma(blob, img_u8, optimize_gamma)
-        return blob, q, bpp
+        with span("codec.compress_to_bpp"):
+            if probe == "encode":
+                q, bpp, blob = self._bisect_quality(encode_at, target_bpp,
+                                                    tol, max_iters)
+            else:
+                # Bisect on the analytic rate; the padded image is uploaded
+                # once for every probe, and the coder runs once, at the end.
+                padded, (h, w) = pad_image(img_u8)
+                x = torch.from_numpy(to_model_range(padded))[None].to(
+                    self.device)
+                q, _, _ = self._bisect_quality(
+                    lambda q: (self._estimate_bpp_device(x, (h, w), q), None),
+                    target_bpp, tol, max_iters)
+                bpp, blob = encode_at(q)
+            if optimize_gamma:
+                blob = self._optimize_gamma(blob, img_u8, optimize_gamma)
+            return blob, q, bpp
 
     def _bisect_quality(self, measure, target_bpp: float, tol: float,
                         max_iters: int):
@@ -675,9 +705,10 @@ class CodecRuntime:
         coder would realise plus the container's fixed bits, without running
         the coder. What remains to the real container is rANS's escape
         coding (data-dependent, about 1 %)."""
-        padded, (h, w) = pad_image(img_u8)
-        x = torch.from_numpy(to_model_range(padded))[None].to(self.device)
-        return self._estimate_bpp_device(x, (h, w), quality)
+        with span("codec.estimate_bpp"):
+            padded, (h, w) = pad_image(img_u8)
+            x = torch.from_numpy(to_model_range(padded))[None].to(self.device)
+            return self._estimate_bpp_device(x, (h, w), quality)
 
     @torch.inference_mode()
     def _estimate_bpp_device(self, x: torch.Tensor, orig_hw, quality) -> float:
@@ -702,7 +733,9 @@ class CodecRuntime:
         go one by one through the one encode path there is. ``optimize_gamma``
         is serial per image by construction: use ``compress``.
         """
-        return [self.compress(im, quality_id, quality=quality) for im in imgs]
+        with span("codec.compress_many"):
+            return [self.compress(im, quality_id, quality=quality)
+                    for im in imgs]
 
     def decompress_many(self, blobs: Sequence[bytes],
                         noise: Optional[Sequence[torch.Tensor]] = None,
@@ -731,28 +764,29 @@ class CodecRuntime:
         if noise is not None and len(noise) != len(blobs):
             raise ValueError(f"{len(noise)} noise tensors for {len(blobs)} "
                              f"bitstreams")
-        if generator is None:
-            generator = torch.Generator(self.device).manual_seed(0)
-        out, pending = [], None
-        current = self._decode_symbols(blobs[0])
-        for i in range(len(blobs)):
-            hdr, y_sym, means, (ph, pw) = current
-            isteps = (hdr.steps or self.config.sample.steps
-                      if steps is None else steps)
-            # Queued, not waited for.
-            fetch = self._fetch_later(self._serving_decode(
-                hdr, isteps, y_sym, means, 1.0,
-                self._header_gamma(hdr, isteps), ph, pw,
-                noise=None if noise is None else noise[i],
-                generator=generator))
-            if pending is not None:
-                out.append(pending())
-            pending = (lambda fetch=fetch, hdr=hdr:
-                       fetch()[0][0][:hdr.height, :hdr.width])
-            if i + 1 < len(blobs):
-                current = self._decode_symbols(blobs[i + 1])
-        out.append(pending())
-        return out
+        with span("codec.decompress_many"):
+            if generator is None:
+                generator = torch.Generator(self.device).manual_seed(0)
+            out, pending = [], None
+            current = self._decode_symbols(blobs[0])
+            for i in range(len(blobs)):
+                hdr, y_sym, means, (ph, pw) = current
+                isteps = (hdr.steps or self.config.sample.steps
+                          if steps is None else steps)
+                # Queued, not waited for.
+                fetch = self._fetch_later(self._serving_decode(
+                    hdr, isteps, y_sym, means, 1.0,
+                    self._header_gamma(hdr, isteps), ph, pw,
+                    noise=None if noise is None else noise[i],
+                    generator=generator))
+                if pending is not None:
+                    out.append(pending())
+                pending = (lambda fetch=fetch, hdr=hdr:
+                           fetch()[0][0][:hdr.height, :hdr.width])
+                if i + 1 < len(blobs):
+                    current = self._decode_symbols(blobs[i + 1])
+            out.append(pending())
+            return out
 
     def _optimize_gamma(self, blob: bytes, img_u8: np.ndarray, candidates,
                         noise: Optional[torch.Tensor] = None,
@@ -777,28 +811,36 @@ class CodecRuntime:
                 else tuple(float(g) for g in candidates))
         if not grid:
             raise ValueError("optimize_gamma: empty candidate grid")
-        if noise is None:
-            if generator is None:
-                generator = torch.Generator(self.device).manual_seed(0)
-            ph, pw = pad_image(img_u8)[0].shape[:2]
-            noise = torch.randn((1, ph, pw, 3), generator=generator,
-                                dtype=torch.float32, device=self.device)
-        ref = img_u8.astype(np.float64)
-        best_g, best_err = None, np.inf
-        recs = {}
-        for g in grid:
-            rec = self.decompress(blob, noise=noise, gamma=g)
-            if spatial and g in (0.0, 1.0):
-                recs[g] = rec
-            err = _mse(rec, ref)
-            if err < best_err:
-                best_g, best_err = g, err
-        if spatial:
-            grid_u8 = self._fit_gamma_grid(ref, recs[0.0], recs[1.0])
-            cand = with_header_gamma_grid(blob, grid_u8, best_g)
-            if _mse(self.decompress(cand, noise=noise), ref) < best_err:
-                return cand
-        return with_header_gamma(blob, best_g)
+        with span("gamma.search"):
+            if noise is None:
+                if generator is None:
+                    generator = torch.Generator(self.device).manual_seed(0)
+                ph, pw = pad_image(img_u8)[0].shape[:2]
+                noise = torch.randn((1, ph, pw, 3), generator=generator,
+                                    dtype=torch.float32, device=self.device)
+            ref = img_u8.astype(np.float64)
+            best_g, best_err = None, np.inf
+            recs = {}
+            for g in grid:
+                with span("gamma.candidate"):
+                    rec = self.decompress(blob, noise=noise, gamma=g)
+                    if spatial and g in (0.0, 1.0):
+                        recs[g] = rec
+                    with span("gamma.score"):
+                        err = _mse(rec, ref)
+                if err < best_err:
+                    best_g, best_err = g, err
+            if spatial:
+                with span("gamma.grid_fit"):
+                    grid_u8 = self._fit_gamma_grid(ref, recs[0.0], recs[1.0])
+                with span("gamma.verify"):
+                    cand = with_header_gamma_grid(blob, grid_u8, best_g)
+                    rec = self.decompress(cand, noise=noise)
+                    with span("gamma.score"):
+                        err = _mse(rec, ref)
+                if err < best_err:
+                    return cand
+            return with_header_gamma(blob, best_g)
 
     def _fit_gamma_grid(self, ref, mean_u8, refined_u8) -> np.ndarray:
         """Closed-form per-tile γ fit.
@@ -832,8 +874,9 @@ class CodecRuntime:
 
     def decode_latent(self, blob: bytes):
         """Bitstream → (ŷ in the coding domain [device], header)."""
-        hdr, y_sym, means, _ = self._decode_symbols(blob)
-        return y_sym.to(torch.float32) + means, hdr
+        with span("codec.decode_latent"):
+            hdr, y_sym, means, _ = self._decode_symbols(blob)
+            return y_sym.to(torch.float32) + means, hdr
 
     def decompress(self, blob: bytes, noise: Optional[torch.Tensor] = None,
                    generator: Optional[torch.Generator] = None,
@@ -853,20 +896,23 @@ class CodecRuntime:
         the header scalar, then ``SampleConfig.blend_gamma``. A variable-rate
         model applies the inverse gain of the header's quality.
         """
-        sample = self.config.sample
-        hdr, y_sym, means, (ph, pw) = self._decode_symbols(blob)
-        if steps is None:
-            steps = hdr.steps or sample.steps
-        if steps == 0 and not self._synth:
-            raise ValueError("steps=0 (mean decode) needs codec.synthesis")
-        if guidance is None:
-            guidance = hdr.guidance or sample.guidance
-        if gamma is None:
-            gamma = self._header_gamma(hdr, steps)
-        img = self._serving_decode(hdr, steps, y_sym, means, guidance, gamma,
-                                   ph, pw, eta=eta, noise=noise,
-                                   generator=generator, step_noise=step_noise)
-        return self._fetch(img)[0][:hdr.height, :hdr.width]
+        with span("codec.decompress"):
+            sample = self.config.sample
+            hdr, y_sym, means, (ph, pw) = self._decode_symbols(blob)
+            if steps is None:
+                steps = hdr.steps or sample.steps
+            if steps == 0 and not self._synth:
+                raise ValueError("steps=0 (mean decode) needs "
+                                 "codec.synthesis")
+            if guidance is None:
+                guidance = hdr.guidance or sample.guidance
+            if gamma is None:
+                gamma = self._header_gamma(hdr, steps)
+            img = self._serving_decode(hdr, steps, y_sym, means, guidance,
+                                       gamma, ph, pw, eta=eta, noise=noise,
+                                       generator=generator,
+                                       step_noise=step_noise)
+            return self._fetch(img)[0][:hdr.height, :hdr.width]
 
     def decompress_tiled(self, blob: bytes,
                          noise: Optional[torch.Tensor] = None,
@@ -887,42 +933,49 @@ class CodecRuntime:
         by ``sharded_sample``, as the JAX package's mesh branch does: the
         inverse gain first, the config's η and truncation, no block cache.
         """
-        sample = self.config.sample
-        y_hat, hdr = self.decode_latent(blob)
-        ph = hdr.height + ((-hdr.height) % PAD_MULTIPLE)
-        pw = hdr.width + ((-hdr.width) % PAD_MULTIPLE)
-        if steps is None:
-            steps = hdr.steps or sample.steps
-        if steps == 0 and not self._synth:
-            raise ValueError("steps=0 (mean decode) needs codec.synthesis")
-        ucfg = self.config.model.unet
-        divisor = ucfg.patch_size * 2 ** (len(ucfg.channel_mult) - 1)
-        extent = tile + 2 * halo
-        if extent % divisor:
-            raise ValueError(
-                f"tile+2*halo={extent} must be divisible by {divisor} "
-                f"(patch_size * 2^(levels-1)) for the UNet's down/up path")
-        plan = make_tile_plan(ph, pw, tile=tile, halo=halo)
-        y_tiles = torch.from_numpy(
-            split_tiles(self._fetch(y_hat), plan, scale=16)).to(self.device)
-        gamma = self._header_gamma(hdr, steps, grid=False)
-        if mesh is not None:
-            x_tiles = self._fetch(self._sharded_tiles(
-                y_tiles, hdr, steps, gamma, extent, mesh, noise, generator))
-        else:
-            # The continuous-quality path has no block-cached variant (as
-            # in the JAX package).
-            cache_period = (1 if hdr.quality_f_or_none is not None
-                            else sample.cache_period)
-            x_tiles = self._fetch(self._device_stage(
-                y_tiles, torch.zeros((), device=self.device), steps,
-                sample.eta, gamma, extent, extent, noise=noise,
-                generator=generator, inv_gain=self._header_inv_gain(hdr),
-                cache_period=cache_period))
-        # Blend the halos in float, then back to uint8.
-        blended = blend_tiles(x_tiles.astype(np.float32), plan)
-        out = np.clip(blended + 0.5, 0, 255).astype(np.uint8)
-        return out[:hdr.height, :hdr.width]
+        with span("codec.decompress_tiled"):
+            sample = self.config.sample
+            y_hat, hdr = self.decode_latent(blob)
+            ph = hdr.height + ((-hdr.height) % PAD_MULTIPLE)
+            pw = hdr.width + ((-hdr.width) % PAD_MULTIPLE)
+            if steps is None:
+                steps = hdr.steps or sample.steps
+            if steps == 0 and not self._synth:
+                raise ValueError("steps=0 (mean decode) needs codec.synthesis")
+            ucfg = self.config.model.unet
+            divisor = ucfg.patch_size * 2 ** (len(ucfg.channel_mult) - 1)
+            extent = tile + 2 * halo
+            if extent % divisor:
+                raise ValueError(
+                    f"tile+2*halo={extent} must be divisible by {divisor} "
+                    f"(patch_size * 2^(levels-1)) for the UNet's down/up path")
+            plan = make_tile_plan(ph, pw, tile=tile, halo=halo)
+            y_np = self._fetch(y_hat)
+            with span("codec.tile_split"):
+                y_tiles = torch.from_numpy(
+                    split_tiles(y_np, plan, scale=16)).to(self.device)
+            gamma = self._header_gamma(hdr, steps, grid=False)
+            if mesh is not None:
+                with span("codec.device_stage"):
+                    x_tiles = self._sharded_tiles(
+                        y_tiles, hdr, steps, gamma, extent, mesh, noise,
+                        generator)
+                x_tiles = self._fetch(x_tiles)
+            else:
+                # The continuous-quality path has no block-cached variant (as
+                # in the JAX package).
+                cache_period = (1 if hdr.quality_f_or_none is not None
+                                else sample.cache_period)
+                x_tiles = self._fetch(self._device_stage(
+                    y_tiles, torch.zeros((), device=self.device), steps,
+                    sample.eta, gamma, extent, extent, noise=noise,
+                    generator=generator, inv_gain=self._header_inv_gain(hdr),
+                    cache_period=cache_period))
+            with span("codec.tile_blend"):
+                # Blend the halos in float, then back to uint8.
+                blended = blend_tiles(x_tiles.astype(np.float32), plan)
+                out = np.clip(blended + 0.5, 0, 255).astype(np.uint8)
+            return out[:hdr.height, :hdr.width]
 
     @torch.inference_mode()
     def _sharded_tiles(self, y_tiles: torch.Tensor, hdr: BitstreamHeader,

@@ -53,6 +53,7 @@ from tpucdc_torch.runtime.device import resolve_device
 from tpucdc_torch.runtime.mesh import (DATA_AXIS, axis_group, axis_index,
                                        axis_size, is_rank0, replicate,
                                        shard_batch)
+from tpucdc_torch.utils.profiling import span
 from tpucdc_torch.utils.weights import init_weights
 
 AUX_PARAM = "factorized.quantiles"
@@ -132,37 +133,43 @@ class Optimizer:
     def step(self) -> None:
         """One update from the parameters' ``.grad`` (None counts as 0)."""
         n_main = len(self.main)
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in self.params]
-        norm = global_norm(grads[:n_main])
-        if self.plan is not None:
-            grads = [self.plan.local(n, g) for n, g in zip(self.names, grads)]
-        main_grads = grads[:n_main]
-        # optax: g / ‖g‖ · clip where ‖g‖ ≥ clip, as one factor on the card
-        # (no host sync): 1, or clip / ‖g‖.
-        scale = torch.where(norm < self.grad_clip, torch.ones_like(norm),
-                            self.grad_clip / norm)
-        grads = [*torch._foreach_mul(main_grads, scale), *grads[n_main:]]
+        with span("optim.clip"):
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in self.params]
+            norm = global_norm(grads[:n_main])
+            if self.plan is not None:
+                grads = [self.plan.local(n, g)
+                         for n, g in zip(self.names, grads)]
+            main_grads = grads[:n_main]
+            # optax: g / ‖g‖ · clip where ‖g‖ ≥ clip, as one factor on the
+            # card (no host sync): 1, or clip / ‖g‖.
+            scale = torch.where(norm < self.grad_clip, torch.ones_like(norm),
+                                self.grad_clip / norm)
+            grads = [*torch._foreach_mul(main_grads, scale),
+                     *grads[n_main:]]
         b1, b2 = self.B1, self.B2
-        torch._foreach_mul_(self.mu, b1)
-        torch._foreach_add_(self.mu, torch._foreach_mul(grads, 1 - b1))
-        torch._foreach_mul_(self.nu, b2)
-        torch._foreach_add_(self.nu, torch._foreach_mul(
-            torch._foreach_mul(grads, grads), 1 - b2))
+        with span("optim.moments"):
+            torch._foreach_mul_(self.mu, b1)
+            torch._foreach_add_(self.mu, torch._foreach_mul(grads, 1 - b1))
+            torch._foreach_mul_(self.nu, b2)
+            torch._foreach_add_(self.nu, torch._foreach_mul(
+                torch._foreach_mul(grads, grads), 1 - b2))
         t = np.float32(self.count + 1)
         bc1 = float(np.float32(1) - np.float32(b1) ** t)
         bc2 = float(np.float32(1) - np.float32(b2) ** t)
-        upd = torch._foreach_div(
-            torch._foreach_div(self.mu, bc1),
-            torch._foreach_add(torch._foreach_sqrt(
-                torch._foreach_div(self.nu, bc2)), self.EPS))
-        if self.weight_decay:
-            torch._foreach_add_(upd[:n_main], torch._foreach_mul(
-                self.main, self.weight_decay))
-        lr = float(np.float32(self.schedule(self.count)))
-        torch._foreach_add_(self.main, torch._foreach_mul(upd[:n_main], -lr))
-        torch._foreach_add_(self.aux, torch._foreach_mul(
-            upd[n_main:], -float(np.float32(self.aux_lr))))
+        with span("optim.update"):
+            upd = torch._foreach_div(
+                torch._foreach_div(self.mu, bc1),
+                torch._foreach_add(torch._foreach_sqrt(
+                    torch._foreach_div(self.nu, bc2)), self.EPS))
+            if self.weight_decay:
+                torch._foreach_add_(upd[:n_main], torch._foreach_mul(
+                    self.main, self.weight_decay))
+            lr = float(np.float32(self.schedule(self.count)))
+            torch._foreach_add_(self.main,
+                                torch._foreach_mul(upd[:n_main], -lr))
+            torch._foreach_add_(self.aux, torch._foreach_mul(
+                upd[n_main:], -float(np.float32(self.aux_lr))))
         self.count += 1
 
     def zero_grad(self) -> None:
@@ -335,46 +342,48 @@ def loss_fn(model: CDCModel, batch: torch.Tensor, tables: dict,
     clipped x₀, the refiner's output, never on x̄.
     """
     out = model(batch, tables, train=train, draws=draws, generator=generator)
-    axes = tuple(range(1, batch.dim()))
-    mse_eps_s = torch.mean(torch.square(out["eps"] - out["eps_hat"]),
-                           dim=axes)
-    x0_pred = torch.clamp(out["x0_pred"], -1.0, 1.0)
-    mse_x0_s = torch.mean(torch.square(out["x0"] - x0_pred), dim=axes)
-    if distortion == "eps":
-        dist_s = mse_eps_s
-    elif distortion == "x0":
-        dist_s = mse_x0_s
-    elif distortion == "both":
-        dist_s = mse_eps_s + x0_weight * mse_x0_s
-    else:
-        raise ValueError(f"unknown distortion {distortion!r}")
-    mse_gs_s = diff_s = None
-    if out["x_bar"] is not None:
-        mse_gs_s = torch.mean(torch.square(out["x_bar"] - batch), dim=axes)
-        diff_s, dist_s = dist_s, mse_gs_s
-    if rd_lambdas and out["quality"] is not None:
-        lam = torch.tensor(rd_lambdas, dtype=torch.float32,
-                           device=batch.device)[out["quality"].long()]
-        weighted = torch.mean(lam * dist_s)
-    else:
-        weighted = rd_lambda * torch.mean(dist_s)
-    if diff_s is not None:
-        weighted = weighted + diff_weight * torch.mean(diff_s)
-    lp = None
-    if lpips_weight > 0.0 and lpips_fn is not None:
-        lp = lpips_fn(x0_pred, batch)
-        weighted = weighted + lpips_weight * lp
-    rate = out["bpp_y"] + out["bpp_z"]
-    aux = model.aux_loss()
-    loss = rate + weighted + aux
-    metrics = {"loss": loss, "bpp": rate, "bpp_y": out["bpp_y"],
-               "bpp_z": out["bpp_z"], "mse_eps": torch.mean(mse_eps_s),
-               "mse_x0": torch.mean(mse_x0_s), "aux": aux}
-    if mse_gs_s is not None:
-        metrics["mse_gs"] = torch.mean(mse_gs_s)
-    if lp is not None:
-        metrics["lpips_term"] = lp
-    return loss, metrics
+    with span("train.loss"):
+        axes = tuple(range(1, batch.dim()))
+        mse_eps_s = torch.mean(torch.square(out["eps"] - out["eps_hat"]),
+                               dim=axes)
+        x0_pred = torch.clamp(out["x0_pred"], -1.0, 1.0)
+        mse_x0_s = torch.mean(torch.square(out["x0"] - x0_pred), dim=axes)
+        if distortion == "eps":
+            dist_s = mse_eps_s
+        elif distortion == "x0":
+            dist_s = mse_x0_s
+        elif distortion == "both":
+            dist_s = mse_eps_s + x0_weight * mse_x0_s
+        else:
+            raise ValueError(f"unknown distortion {distortion!r}")
+        mse_gs_s = diff_s = None
+        if out["x_bar"] is not None:
+            mse_gs_s = torch.mean(torch.square(out["x_bar"] - batch), dim=axes)
+            diff_s, dist_s = dist_s, mse_gs_s
+        if rd_lambdas and out["quality"] is not None:
+            lam = torch.tensor(rd_lambdas, dtype=torch.float32,
+                               device=batch.device)[out["quality"].long()]
+            weighted = torch.mean(lam * dist_s)
+        else:
+            weighted = rd_lambda * torch.mean(dist_s)
+        if diff_s is not None:
+            weighted = weighted + diff_weight * torch.mean(diff_s)
+        lp = None
+        if lpips_weight > 0.0 and lpips_fn is not None:
+            with span("train.lpips"):
+                lp = lpips_fn(x0_pred, batch)
+            weighted = weighted + lpips_weight * lp
+        rate = out["bpp_y"] + out["bpp_z"]
+        aux = model.aux_loss()
+        loss = rate + weighted + aux
+        metrics = {"loss": loss, "bpp": rate, "bpp_y": out["bpp_y"],
+                   "bpp_z": out["bpp_z"], "mse_eps": torch.mean(mse_eps_s),
+                   "mse_x0": torch.mean(mse_x0_s), "aux": aux}
+        if mse_gs_s is not None:
+            metrics["mse_gs"] = torch.mean(mse_gs_s)
+        if lp is not None:
+            metrics["lpips_term"] = lp
+        return loss, metrics
 
 
 def make_train_step(cfg: Config, tables: dict, mesh=None):
@@ -404,34 +413,47 @@ def make_train_step(cfg: Config, tables: dict, mesh=None):
     def step_fn(state: TrainState, batch: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 draws: Optional[dict] = None) -> dict:
-        if batch.dtype == torch.uint8:
-            batch = batch.to(torch.float32) * (1.0 / 127.5) - 1.0
-        b = batch.shape[0]
-        if draws is None and generator is not None:
-            draws = state.model.training_draws(
-                (b * n_data, *batch.shape[1:]), num_timesteps,
-                generator=generator, device=batch.device)
-        if draws is not None and n_data > 1:
-            draws = {k: v[index * b:(index + 1) * b] for k, v in draws.items()}
-        state.opt.zero_grad()
-        if state.plan is not None:
-            state.gather_params()
-        loss, metrics = loss_fn(
-            state.model, batch, tables, tc.rd_lambda,
-            distortion=tc.distortion, rd_lambdas=tc.rd_lambdas,
-            diff_weight=tc.diff_weight, lpips_weight=tc.lpips_weight,
-            lpips_fn=lpips_fn, draws=draws, generator=generator)
-        loss.backward()
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        if mesh is not None:
-            _mean_grads(state.model, group, n_data)
-            metrics = _mean_metrics(metrics, group, n_data)
-        metrics["grad_norm"] = global_norm(
-            p.grad for p in state.model.parameters() if p.grad is not None)
-        state.opt.step()
-        ema_update(state, tc.ema_decay)
-        state.step += 1
-        return metrics
+        with span("train.step"):
+            if batch.dtype == torch.uint8:
+                batch = batch.to(torch.float32) * (1.0 / 127.5) - 1.0
+            b = batch.shape[0]
+            with span("train.draws"):
+                if draws is None and generator is not None:
+                    draws = state.model.training_draws(
+                        (b * n_data, *batch.shape[1:]), num_timesteps,
+                        generator=generator, device=batch.device)
+                if draws is not None and n_data > 1:
+                    draws = {k: v[index * b:(index + 1) * b]
+                             for k, v in draws.items()}
+            with span("train.forward"):
+                state.opt.zero_grad()
+                if state.plan is not None:
+                    state.gather_params()
+                loss, metrics = loss_fn(
+                    state.model, batch, tables, tc.rd_lambda,
+                    distortion=tc.distortion, rd_lambdas=tc.rd_lambdas,
+                    diff_weight=tc.diff_weight, lpips_weight=tc.lpips_weight,
+                    lpips_fn=lpips_fn, draws=draws, generator=generator)
+            with span("train.backward"):
+                loss.backward()
+                # The autograd graph goes with the last reference to the
+                # loss: free it here rather than when the step returns.
+                metrics = {k: v.detach() for k, v in metrics.items()}
+                del loss
+            if mesh is not None:
+                with span("train.all_reduce"):
+                    _mean_grads(state.model, group, n_data)
+                    metrics = _mean_metrics(metrics, group, n_data)
+            with span("train.grad_norm"):
+                metrics["grad_norm"] = global_norm(
+                    p.grad for p in state.model.parameters()
+                    if p.grad is not None)
+            with span("train.optimizer"):
+                state.opt.step()
+            with span("train.ema"):
+                ema_update(state, tc.ema_decay)
+            state.step += 1
+            return metrics
 
     return step_fn
 
@@ -494,22 +516,23 @@ def fit(cfg: Config, data_iter: Iterator, mesh=None, writer=None,
     if tc.batch_size % n_data:
         raise ValueError(f"batch {tc.batch_size} not divisible by data "
                          f"axis {n_data}")
-    device = resolve_device(device)
-    if device.type == "cuda":
-        pin_numerics()
-        print("[train] cuda: TF32 off (cudnn.allow_tf32, "
-              "cuda.matmul.allow_tf32), cudnn.benchmark off, "
-              "cudnn.deterministic on", flush=True)
-    tables = schedule_tables(cfg, device)
-    if start_state is None:
-        model, state = create_state(cfg, tc.seed, mesh=mesh, device=device)
-    else:
-        model, state = start_state.model, start_state
-        if (mesh is not None and tc.param_sharding == "tensor"
-                and state.plan is None):
-            apply_tp(state, mesh)
-    train_step = make_train_step(cfg, tables, mesh)
-    rank0 = is_rank0()
+    with span("train.setup"):
+        device = resolve_device(device)
+        if device.type == "cuda":
+            pin_numerics()
+            print("[train] cuda: TF32 off (cudnn.allow_tf32, "
+                  "cuda.matmul.allow_tf32), cudnn.benchmark off, "
+                  "cudnn.deterministic on", flush=True)
+        tables = schedule_tables(cfg, device)
+        if start_state is None:
+            model, state = create_state(cfg, tc.seed, mesh=mesh, device=device)
+        else:
+            model, state = start_state.model, start_state
+            if (mesh is not None and tc.param_sharding == "tensor"
+                    and state.plan is None):
+                apply_tp(state, mesh)
+        train_step = make_train_step(cfg, tables, mesh)
+        rank0 = is_rank0()
 
     total = num_steps if num_steps is not None else tc.steps
     k = max(tc.steps_per_dispatch, 1)
@@ -528,32 +551,39 @@ def fit(cfg: Config, data_iter: Iterator, mesh=None, writer=None,
                 and step <= tc.fault_inject_step < step + k):
             # Debug hook exercising preemption-safe resume.
             os._exit(42)
-        if mesh is None:
-            chunk = np.stack([next(data_iter) for _ in range(k)])
-        else:
-            chunk = np.stack([shard_batch(next(data_iter), mesh)
-                              for _ in range(k)])
-        chunk = torch.from_numpy(chunk).to(device)
-        for i in range(k):
-            metrics = train_step(state, chunk[i], prng.generator(
-                tc.seed + 1, step + i, device=device))
-        done += k
-        next_step = step + k
-        if (writer is not None and rank0
-                and (next_step % tc.log_every) < k):
-            m = {key: float(v) for key, v in metrics.items()}
-            now = time.time()
-            m["steps_per_sec"] = (next_step - s_last) / max(now - t_last,
-                                                            1e-9)
-            t_last, s_last = now, next_step
-            writer(next_step, m)
-        if checkpointer is not None and (next_step % tc.checkpoint_every) < k:
-            full = state.state_dict()
-            if rank0:
-                checkpointer(next_step, full)
-            if mesh is not None:
-                import torch.distributed as dist
-                dist.barrier()
+        with span("train.chunk", steps=k):
+            with span("train.data"):
+                if mesh is None:
+                    chunk = np.stack([next(data_iter) for _ in range(k)])
+                else:
+                    chunk = np.stack([shard_batch(next(data_iter), mesh)
+                                      for _ in range(k)])
+                chunk = torch.from_numpy(chunk).to(device)
+            for i in range(k):
+                with span("train.seed"):
+                    generator = prng.generator(tc.seed + 1, step + i,
+                                               device=device)
+                metrics = train_step(state, chunk[i], generator)
+            done += k
+            next_step = step + k
+            if (writer is not None and rank0
+                    and (next_step % tc.log_every) < k):
+                with span("train.log"):
+                    m = {key: float(v) for key, v in metrics.items()}
+                    now = time.time()
+                    m["steps_per_sec"] = (next_step - s_last) / max(
+                        now - t_last, 1e-9)
+                    t_last, s_last = now, next_step
+                    writer(next_step, m)
+            if (checkpointer is not None
+                    and (next_step % tc.checkpoint_every) < k):
+                with span("train.checkpoint"):
+                    full = state.state_dict()
+                    if rank0:
+                        checkpointer(next_step, full)
+                    if mesh is not None:
+                        import torch.distributed as dist
+                        dist.barrier()
     if state.plan is not None and state.plan.sharded:
         state.gather_params()
     return model, state

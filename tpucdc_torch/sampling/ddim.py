@@ -17,6 +17,7 @@ import torch
 
 from tpucdc_torch.ops.schedules import DiffusionSchedule, ddim_subsequence
 from tpucdc_torch.runtime.device import resolve_device
+from tpucdc_torch.utils.profiling import span
 
 NetFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]  # (x_t, t) -> out
 
@@ -173,13 +174,15 @@ def _ddim_loop(net, schedule, shape, num_steps, eta, noise, step_noise,
     x = _chain_start(tables, draw, noise, x_ref, x_init, prediction)
     cache = None
     for k in range(len(tables["t"])):
-        tab = _row(tables, k)
-        t_vec = torch.full((shape[0],), tab["t"], dtype=torch.int32,
-                           device=device)
-        out, cache = net(k, x, t_vec, cache)
-        z = None
-        if tab["sigma"] != 0.0:
-            z = draw(None if step_noise is None else step_noise[k])
-        x = _ddim_update(x, out.to(torch.float32), tab, z, clip_x0,
-                         prediction, x_ref)
+        with span("ddim.step"):
+            tab = _row(tables, k)
+            t_vec = torch.full((shape[0],), tab["t"], dtype=torch.int32,
+                               device=device)
+            out, cache = net(k, x, t_vec, cache)
+            with span("ddim.update"):
+                z = None
+                if tab["sigma"] != 0.0:
+                    z = draw(None if step_noise is None else step_noise[k])
+                x = _ddim_update(x, out.to(torch.float32), tab, z, clip_x0,
+                                 prediction, x_ref)
     return x

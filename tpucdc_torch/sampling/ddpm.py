@@ -15,6 +15,7 @@ import torch
 from tpucdc_torch.ops.schedules import DiffusionSchedule
 from tpucdc_torch.runtime.device import resolve_device
 from tpucdc_torch.sampling.ddim import NetFn, make_draw
+from tpucdc_torch.utils.profiling import span
 
 
 def ddpm_sample(eps_fn: NetFn, schedule: DiffusionSchedule, shape,
@@ -33,17 +34,20 @@ def ddpm_sample(eps_fn: NetFn, schedule: DiffusionSchedule, shape,
     x = draw(noise)
     T = schedule.num_steps
     for k, t in enumerate(range(T - 1, -1, -1)):
-        t_vec = torch.full((shape[0],), t, dtype=torch.int32, device=device)
-        eps = eps_fn(x, t_vec).to(torch.float32)
-        x0 = ((x - float(schedule.sqrt_one_minus_alpha_bars[t]) * eps)
-              / float(schedule.sqrt_alpha_bars[t]))
-        if clip_x0:
-            x0 = torch.clamp(x0, -1.0, 1.0)
-        x = (float(schedule.posterior_mean_coef_x0[t]) * x0
-             + float(schedule.posterior_mean_coef_xt[t]) * x)
-        z = draw(None if step_noise is None else step_noise[k])
-        if t > 0:
-            # exp in f32, as the JAX package takes it.
-            std = np.exp(np.float32(0.5) * schedule.posterior_log_variance[t])
-            x = x + float(std) * z
+        with span("ddpm.step"):
+            t_vec = torch.full((shape[0],), t, dtype=torch.int32,
+                               device=device)
+            eps = eps_fn(x, t_vec).to(torch.float32)
+            x0 = ((x - float(schedule.sqrt_one_minus_alpha_bars[t]) * eps)
+                  / float(schedule.sqrt_alpha_bars[t]))
+            if clip_x0:
+                x0 = torch.clamp(x0, -1.0, 1.0)
+            x = (float(schedule.posterior_mean_coef_x0[t]) * x0
+                 + float(schedule.posterior_mean_coef_xt[t]) * x)
+            z = draw(None if step_noise is None else step_noise[k])
+            if t > 0:
+                # exp in f32, as the JAX package takes it.
+                std = np.exp(np.float32(0.5)
+                             * schedule.posterior_log_variance[t])
+                x = x + float(std) * z
     return x
