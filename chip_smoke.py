@@ -427,6 +427,7 @@ def main() -> None:
     attn_mod = importlib.import_module("tpucdc_torch.ops.attention")
     groupnorm = importlib.import_module("tpucdc_torch.ops.groupnorm")
     from tpucdc_torch.runtime import set_policy
+    from tpucdc_torch.sampling.graphed import GraphedDenoiser
     from tpucdc_torch.utils import draw_weights
 
     dev = torch.device("cuda")
@@ -509,7 +510,9 @@ def main() -> None:
     orig_gn, orig_attn = groupnorm.gn_silu_cuda, attn_mod.attention_cuda
 
     def discover(run) -> dict:
-        """The kernel shapes ``run`` hands the wrappers, with their counts."""
+        """The kernel shapes ``run`` hands the wrappers, with their counts,
+        every UNet step run eagerly (a replayed CUDA graph calls no
+        wrapper)."""
         into = {"gn_silu": collections.Counter(),
                 "attention": collections.Counter()}
 
@@ -526,10 +529,13 @@ def main() -> None:
             return orig_attn(q, k, v, scale)
 
         groupnorm.gn_silu_cuda, attn_mod.attention_cuda = rec_gn, rec_attn
+        engages = GraphedDenoiser.engages
+        GraphedDenoiser.engages = lambda self, x_t: False
         try:
             run()
         finally:
             groupnorm.gn_silu_cuda, attn_mod.attention_cuda = orig_gn, orig_attn
+            GraphedDenoiser.engages = engages
         return into
 
     seen = discover(lambda: rt16.decompress(blob768))

@@ -56,6 +56,13 @@ def _partials(device: torch.device, stream: int, floats: int) -> torch.Tensor:
     return buf
 
 
+def scratch(device: torch.device, stream: int):
+    """The scratch that launches on ``stream`` use now; None before the
+    first. A CUDA graph holds the one it captured, as a larger call on the
+    stream replaces it."""
+    return _scratch.get((device.index, stream))
+
+
 def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                num_groups: int, eps: float = 1e-5) -> torch.Tensor:
     """Plain GroupNorm over NHWC input; f32 statistics, input dtype out."""

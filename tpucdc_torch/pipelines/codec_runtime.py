@@ -27,7 +27,8 @@ Decode (``decompress``):
      ``guidance`` ≠ 1 its net call is batch-doubled classifier-free
      guidance, with ``sample.cache_period`` > 1 it is block-cached DDIM,
      with ``sample.sampler == "ddpm"`` the ancestral sampler over all T
-     steps.
+     steps. On the card the plain DDIM and DDPM loops replay the UNet step
+     as a CUDA graph (``sampling.graphed``).
 
 ``decompress_tiled`` decodes a large image as one batch of overlapping tiles
 and blends them on the host. ``compress_many`` / ``decompress_many`` are the
@@ -77,6 +78,7 @@ from tpucdc_torch.runtime.mesh import DATA_AXIS, axis_size
 from tpucdc_torch.sampling import (ddim_sample, ddim_sample_blockcached,
                                    ddim_step_tables, ddpm_sample,
                                    make_batched_cfg_eps_fn)
+from tpucdc_torch.sampling.graphed import GraphedDenoiser
 from tpucdc_torch.utils.profiling import span
 
 PAD_MULTIPLE = 64  # g_a 16× · h_a 4×
@@ -152,6 +154,7 @@ class CodecRuntime:
         self._hyper_c = cf.hyper_channels
         self._nq = cf.num_qualities
         self._synth = cf.synthesis
+        self._denoiser = GraphedDenoiser()
         if self._nq > 1:
             # The trained gain ladder, fetched once: quality_gains
             # interpolates on the host.
@@ -491,7 +494,11 @@ class CodecRuntime:
     def _sample(self, cond_f, cond_t, x_bar, shape, steps: int, eta: float,
                 noise, generator, guidance: float, cache_period: int,
                 step_noise) -> torch.Tensor:
-        """The sampler of ``_device_stage``: x₀ [B, ph, pw, 3] in f32."""
+        """The sampler of ``_device_stage``: x₀ [B, ph, pw, 3] in f32.
+
+        The plain DDIM and the DDPM loops call the UNet through the
+        runtime's ``GraphedDenoiser`` (a CUDA graph a shape on the card);
+        block-cached DDIM calls it eagerly."""
         if generator is None:
             generator = torch.Generator(self.device).manual_seed(0)
         model = self.model
@@ -502,11 +509,13 @@ class CodecRuntime:
             x_bar2 = (None if x_bar is None else
                       torch.cat([x_bar, torch.zeros_like(x_bar)], dim=0))
             net_fn = make_batched_cfg_eps_fn(
-                lambda x2, t2: model.denoise(x2, t2, cond_f2, cond_t2, x_bar2),
+                lambda x2, t2: self._denoiser(model.denoise, x2, t2, cond_f2,
+                                              cond_t2, x_bar2),
                 float(guidance))
         else:
             def net_fn(x_t, t):
-                return model.denoise(x_t, t, cond_f, cond_t, x_bar)
+                return self._denoiser(model.denoise, x_t, t, cond_f, cond_t,
+                                      x_bar)
 
         pred = self.config.model.prediction
         draws = dict(noise=noise, step_noise=step_noise, generator=generator,
