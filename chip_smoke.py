@@ -33,11 +33,17 @@ in order; any failure raises, exits non-zero and prints no result line:
                 decompress under F32_POLICY, the device stage under
                 BF16_POLICY, a stage split, and each kernel's time, device
                 time, bound, plain time and library time at every shape of
-                the main path.
+                the main path, and the same at the shapes of the DiT-XL/2
+                decode (the ``dit_decode_*`` fields of the ``kernels``
+                line).
   6. main path — the launch counts of one serving decode
                 (``CodecRuntime.decompress`` under BF16_POLICY, the JAX
                 package's serving policy), counts reset just before: 93
-                GN+SiLU launches and 60 attention launches, no more.
+                GN+SiLU launches and 60 attention launches, no more. The
+                same for ``dit_xl2_serving()`` (the flagship's codec and
+                head, a DiT-XL/2 drawn from a seed), graphed as served: 3
+                GN+SiLU launches (the head) and 140 attention launches (28
+                blocks × 5 steps), no more.
 
   7. encode   — the flagship encodes the 384×512 crop of the fixture with
                 ``compress(optimize_gamma="spatial")`` under F32_POLICY: the
@@ -170,7 +176,10 @@ in order; any failure raises, exits non-zero and prints no result line:
 
 The kernel checks of phase 3 also cover every shape these paths give the two
 kernels (batch 2, 6 and 48; head widths 48 and 64; the 384×512 fixture plain
-and guided; the variable-rate model), found by one step of each. The last
+and guided; the variable-rate model), found by one step of each, and those of
+the DiT-XL/2 decode at 768×512, found by one whole decode: attention at
+(1, 16, 6144, 72) on head views of one qkv projection, the kernel's d ≤ 128
+path. The last
 three lines are the card's name and power limit, the ``kernels`` JSON line,
 and ``{"ok": true, "device": {...}}``. Details also go to
 chiprun_out/chip_smoke.json. Phases 14, 15 and 16 run after phase 13, each
@@ -423,6 +432,7 @@ def main() -> None:
     from tpucdc_torch.entropy import _build as rans_build
     from tpucdc_torch.ops import _kernels
     from tpucdc_torch.pipelines import codec_runtime
+    from tpucdc_torch.presets import dit_xl2_serving
     # The wrapper modules (the package namespace re-exports their functions).
     attn_mod = importlib.import_module("tpucdc_torch.ops.attention")
     groupnorm = importlib.import_module("tpucdc_torch.ops.groupnorm")
@@ -506,6 +516,18 @@ def main() -> None:
           f"large preset: codec weights do not fit ({unexpected})")
     rtL = port.CodecRuntime(lcfg, lmodel, device=dev, policy=port.BF16_POLICY)
 
+    # The DiT-XL/2 refiner (``dit_xl2_serving``) on the flagship's trained
+    # codec and head, the DiT drawn from a seed (the repo has none trained).
+    dcfg = dit_xl2_serving()
+    dmodel = port.CDCModel(dcfg.model)
+    draw_weights(dmodel, seed=0, prefixes=("dit.",))
+    missing, unexpected = dmodel.load_state_dict(
+        {k: v for k, v in state.items() if not k.startswith("unet.")},
+        strict=False)
+    check(not unexpected and all(k.startswith("dit.") for k in missing),
+          f"DiT preset: codec weights do not fit ({unexpected})")
+    rtD = port.CodecRuntime(dcfg, dmodel, device=dev, policy=port.BF16_POLICY)
+
     # Shape discovery: the shapes a path gives each kernel.
     orig_gn, orig_attn = groupnorm.gn_silu_cuda, attn_mod.attention_cuda
 
@@ -571,6 +593,21 @@ def main() -> None:
     check(any(q[:3] == (2, 4, 768) for q, _, _ in new_attn)
           and any(q[:3] == (1, 4, 768) for q, _, _ in new_attn),
           f"the 384x512 decodes were not discovered: {new_attn}")
+
+    # The DiT's decode: its attention is the kernel's d ≤ 128 path, 28
+    # blocks × 5 steps at (1, 16, 6144, 72) on head views of one qkv
+    # projection; its GN+SiLU the conditioning head's, as the flagship's.
+    dit_seen = discover(lambda: rtD.decompress(blob768))
+    dit_attn = [k for k in dit_seen["attention"]
+                if k not in seen["attention"] and k not in new_attn]
+    say("kernels", f"DiT decode shapes: attention {dict(dit_seen['attention'])}"
+        f", GN+SiLU {dict(dit_seen['gn_silu'])}")
+    check(dict(dit_seen["attention"]) == {
+        ((1, 16, 6144, 72), (1, 16, 6144, 72), True): 140}
+        and set(dit_seen["gn_silu"]) <= set(seen["gn_silu"])
+        and sum(dit_seen["gn_silu"].values()) == 3,
+        f"the DiT decode's shapes are not 140 x (1, 16, 6144, 72) on head "
+        f"views and 3 of the head's GN+SiLU: {dit_seen}")
 
     # ---- 3. kernels vs plain ----
     gen = torch.Generator(dev).manual_seed(0)
@@ -651,7 +688,7 @@ def main() -> None:
         return err
 
     for dn in dtypes:
-        for (qs, ks, views) in list(seen["attention"]) + new_attn:
+        for (qs, ks, views) in list(seen["attention"]) + new_attn + dit_attn:
             for lay in sorted({views, False}):
                 err = attn_case(qs, ks, dn, views=lay)
                 if dn == "bf16":
@@ -795,59 +832,74 @@ def main() -> None:
         check(total > 0, f"the profiler saw no {kernel_names} kernel")
         return total / iters
 
-    per = {"gn_silu": collections.defaultdict(float),
-           "attention": collections.defaultdict(float)}
     shape_rows = []
-    for (shape, groups), n in seen["gn_silu"].items():
-        x, g, b, G = gn_inputs(shape, groups, torch.bfloat16)
-        c = shape[-1]
-        x_nchw = x.reshape(shape[0], -1, c).transpose(1, 2).contiguous()
-        nbytes = 2 * x.numel() * 2 + 2 * c * 4
-        flops = 10 * x.numel()
-        row = {
-            "ms": event_ms(lambda: groupnorm.gn_silu_cuda(x, g, b, G)),
-            "plain_ms": event_ms(lambda: groupnorm.gn_reference(
-                x, g, b, G, 1e-5, True)),
-            "library_ms": event_ms(lambda: F.silu(F.group_norm(
-                x_nchw, G, g.to(x.dtype), b.to(x.dtype), 1e-5))),
-            "device_ms": 1e-3 * device_us(
-                lambda: groupnorm.gn_silu_cuda(x, g, b, G), ["gn_silu_kernel"]),
-            "bytes_ms": 1e3 * nbytes / HBM_BYTES_S,
-            "ops_ms": 1e3 * flops / PEAK_FLOPS["f32"],
-        }
-        row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
-        say("timing", f"gn_silu {shape}/{groups} bf16 x{n}: " + ", ".join(
-            f"{k} {v:.4f}" for k, v in row.items()))
-        shape_rows.append({"kernel": "gn_silu", "shape": list(shape),
-                           "groups": groups, "calls": n, **row})
-        for k, v in row.items():
-            per["gn_silu"][k] += n * v
-    for (qs, ks, views), n in seen["attention"].items():
-        q, k, v = attn_inputs(qs, ks, torch.bfloat16, views)
-        b_, h_, nq, d = qs
-        nk = ks[2]
-        nbytes = (2 * q.numel() + 2 * k.numel()) * 2
-        flops = 4 * b_ * h_ * nq * nk * d
-        row = {
-            "ms": event_ms(lambda: attn_mod.attention_cuda(q, k, v, d ** -0.5)),
-            "plain_ms": event_ms(lambda: attn_mod.attention_reference(q, k, v)),
-            "library_ms": event_ms(
-                lambda: F.scaled_dot_product_attention(q, k, v)),
-            "device_ms": 1e-3 * device_us(
-                lambda: attn_mod.attention_cuda(q, k, v, d ** -0.5),
-                ["attention_mma_kernel", "attention_fma_kernel"]),
-            "library_device_ms": 1e-3 * device_us(
-                lambda: F.scaled_dot_product_attention(q, k, v), None),
-            "bytes_ms": 1e3 * nbytes / HBM_BYTES_S,
-            "ops_ms": 1e3 * flops / PEAK_FLOPS["bf16"],
-        }
-        row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
-        say("timing", f"attention q{qs} k{ks} bf16 {'views ' if views else ''}"
-            f"x{n}: " + ", ".join(f"{k} {v:.4f}" for k, v in row.items()))
-        shape_rows.append({"kernel": "attention", "q": list(qs),
-                           "k": list(ks), "views": views, "calls": n, **row})
-        for key, val in row.items():
-            per["attention"][key] += n * val
+
+    def time_shapes(found, path) -> dict:
+        """Each kernel's times and bound at every shape ``found`` (a
+        ``discover`` result), into ``shape_rows``; the sums over the path's
+        calls, per kernel."""
+        per = {"gn_silu": collections.defaultdict(float),
+               "attention": collections.defaultdict(float)}
+        for (shape, groups), n in found["gn_silu"].items():
+            x, g, b, G = gn_inputs(shape, groups, torch.bfloat16)
+            c = shape[-1]
+            x_nchw = x.reshape(shape[0], -1, c).transpose(1, 2).contiguous()
+            nbytes = 2 * x.numel() * 2 + 2 * c * 4
+            flops = 10 * x.numel()
+            row = {
+                "ms": event_ms(lambda: groupnorm.gn_silu_cuda(x, g, b, G)),
+                "plain_ms": event_ms(lambda: groupnorm.gn_reference(
+                    x, g, b, G, 1e-5, True)),
+                "library_ms": event_ms(lambda: F.silu(F.group_norm(
+                    x_nchw, G, g.to(x.dtype), b.to(x.dtype), 1e-5))),
+                "device_ms": 1e-3 * device_us(
+                    lambda: groupnorm.gn_silu_cuda(x, g, b, G),
+                    ["gn_silu_kernel"]),
+                "bytes_ms": 1e3 * nbytes / HBM_BYTES_S,
+                "ops_ms": 1e3 * flops / PEAK_FLOPS["f32"],
+            }
+            row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+            say("timing", f"[{path}] gn_silu {shape}/{groups} bf16 x{n}: "
+                + ", ".join(f"{k} {v:.4f}" for k, v in row.items()))
+            shape_rows.append({"kernel": "gn_silu", "path": path,
+                               "shape": list(shape), "groups": groups,
+                               "calls": n, **row})
+            for k, v in row.items():
+                per["gn_silu"][k] += n * v
+        for (qs, ks, views), n in found["attention"].items():
+            q, k, v = attn_inputs(qs, ks, torch.bfloat16, views)
+            b_, h_, nq, d = qs
+            nk = ks[2]
+            nbytes = (2 * q.numel() + 2 * k.numel()) * 2
+            flops = 4 * b_ * h_ * nq * nk * d
+            row = {
+                "ms": event_ms(
+                    lambda: attn_mod.attention_cuda(q, k, v, d ** -0.5)),
+                "plain_ms": event_ms(
+                    lambda: attn_mod.attention_reference(q, k, v)),
+                "library_ms": event_ms(
+                    lambda: F.scaled_dot_product_attention(q, k, v)),
+                "device_ms": 1e-3 * device_us(
+                    lambda: attn_mod.attention_cuda(q, k, v, d ** -0.5),
+                    ["attention_mma_kernel", "attention_fma_kernel"]),
+                "library_device_ms": 1e-3 * device_us(
+                    lambda: F.scaled_dot_product_attention(q, k, v), None),
+                "bytes_ms": 1e3 * nbytes / HBM_BYTES_S,
+                "ops_ms": 1e3 * flops / PEAK_FLOPS["bf16"],
+            }
+            row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+            say("timing", f"[{path}] attention q{qs} k{ks} bf16 "
+                f"{'views ' if views else ''}x{n}: "
+                + ", ".join(f"{k} {v:.4f}" for k, v in row.items()))
+            shape_rows.append({"kernel": "attention", "path": path,
+                               "q": list(qs), "k": list(ks), "views": views,
+                               "calls": n, **row})
+            for key, val in row.items():
+                per["attention"][key] += n * val
+        return per
+
+    per = time_shapes(seen, "main")
+    per_dit = time_shapes(dit_seen, "dit")
 
     # ---- 6. main path: one serving decode, counts reset just before ----
     _kernels.reset_launches()
@@ -861,6 +913,24 @@ def main() -> None:
           f"main path launches {launches} != 93 GN+SiLU and 60 attention")
     expected = {k: sum(seen[k].values()) for k in seen}
     check(launches == expected, f"launches {launches} != shapes {expected}")
+    # The DiT's decode, graphed as served: 28 blocks x 5 steps of attention
+    # and the conditioning head's 3 GN+SiLU.
+    _kernels.reset_launches()
+    out = rtD.decompress(blob768)
+    torch.cuda.synchronize()
+    dit_launches = dict(_kernels.LAUNCHES)
+    say("main", f"DiT-XL/2 serving decode 768x512 (BF16_POLICY): launches "
+        f"{dit_launches}")
+    check(out.shape == (hdr7.height, hdr7.width, 3) and out.dtype == np.uint8,
+          f"bad DiT output {out.shape} {out.dtype}")
+    check(dit_launches == {"gn_silu": 3, "attention": 140},
+          f"DiT decode launches {dit_launches} != 3 GN+SiLU and 140 "
+          f"attention")
+    expected = {k: sum(dit_seen[k].values()) for k in dit_seen}
+    check(dit_launches == expected,
+          f"DiT launches {dit_launches} != shapes {expected}")
+    del rtD, dmodel
+    torch.cuda.empty_cache()
 
     # ---- 7. encode: the flagship on the fixture's crop ----
     def round_trip(rt, img, blob, quality=0):
@@ -1091,7 +1161,7 @@ def main() -> None:
         return port.CodecRuntime(scfg, runtime.model, device=dev,
                                  policy=policy)
 
-    path_launches = {}
+    path_launches = {"dit_decode": dit_launches}
 
     # ---- 10. guidance and block cache on the trained flagship ----
     mfx = np.load(FIXTURES / "flagship_modes.npz")
@@ -1460,9 +1530,13 @@ def main() -> None:
             "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
             "bound_by": ("bytes" if p["bytes_ms"] >= p["ops_ms"]
                          else "operations"),
-            "library_ms": p["library_ms"]})
+            "library_ms": p["library_ms"],
+            **{f"dit_decode_{k}": per_dit[name][k]
+               for k in ("ms", "plain_ms", "bound_ms", "library_ms")}})
     REPORT["kernels"] = kernels
     REPORT["device_ms"] = {name: per[name]["device_ms"] for name in per}
+    REPORT["dit_decode_device_ms"] = {name: per_dit[name]["device_ms"]
+                                      for name in per_dit}
     REPORT["shapes"] = shape_rows
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(REPORT, indent=1))

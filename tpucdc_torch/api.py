@@ -17,6 +17,7 @@
 from __future__ import annotations
 
 import pathlib
+import warnings
 from typing import Optional
 
 from tpucdc_torch import presets
@@ -58,6 +59,13 @@ def load_model(cfg: Config, checkpoint: Optional[str] = None,
     by ``utils.draw_weights(model, 0)``: they are not the JAX package's flax
     initialisation, so a no-checkpoint runtime of the port does not decode
     what a no-checkpoint JAX runtime encoded.
+
+    A DiT refiner (``model.refiner="dit"``) is served from a checkpoint that
+    holds no DiT, as the flagship's npz does (the repo has no trained DiT):
+    the codec and the conditioning head are loaded (every one of their
+    parameters must be there), the checkpoint's ``unet.*`` arrays are left
+    out, and the DiT is drawn by ``draw_weights(model, 0,
+    prefixes=("dit.",))``, with a warning that the refiner is random.
     """
     model = CDCModel(cfg.model)
     if checkpoint is None:
@@ -69,8 +77,8 @@ def load_model(cfg: Config, checkpoint: Optional[str] = None,
         if (path / "ckpt").is_dir():
             path = path / "ckpt"
         saved = CheckpointManager(path).read()
-        model.load_state_dict(
-            saved["ema_params"] if use_ema else saved["params"], strict=True)
+        _load_state(model, saved["ema_params"] if use_ema
+                    else saved["params"])
         return model
     if not use_ema:
         raise ValueError(f"{path} holds EMA parameters only; the raw "
@@ -79,8 +87,27 @@ def load_model(cfg: Config, checkpoint: Optional[str] = None,
     if unused:
         raise ValueError(f"{path}: {len(unused)} arrays map onto nothing, "
                          f"e.g. {unused[:3]}")
-    model.load_state_dict(state, strict=True)
+    _load_state(model, state)
     return model
+
+
+def _load_state(model: CDCModel, state: dict) -> None:
+    """``state`` into ``model``, strictly; a DiT that ``state`` lacks is
+    drawn (``load_model``)."""
+    if model.config.refiner != "dit" or any(k.startswith("dit.")
+                                            for k in state):
+        model.load_state_dict(state, strict=True)
+        return
+    kept = {k: v for k, v in state.items() if not k.startswith("unet.")}
+    missing, unexpected = model.load_state_dict(kept, strict=False)
+    absent = [k for k in missing if not k.startswith("dit.")]
+    if absent or unexpected:
+        raise ValueError(f"checkpoint does not fit the model outside the "
+                         f"refiner: missing {absent[:3]}, unexpected "
+                         f"{unexpected[:3]}")
+    warnings.warn("the checkpoint holds no DiT: the refiner is drawn from "
+                  "seed 0 (random weights)", stacklevel=3)
+    draw_weights(model, 0, prefixes=("dit.",))
 
 
 def load_runtime(preset: str = "flagship", checkpoint: Optional[str] = None,

@@ -14,6 +14,9 @@ from typing import Any, Optional
 
 
 CONTEXTS = ("hyperprior", "checkerboard", "channel-ar", "space-channel")
+REFINERS = ("unet", "dit")
+# The runtime pads every image to a multiple of this (g_a 16× · h_a 4×).
+PAD_MULTIPLE = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,6 +115,36 @@ class UNetConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DiTConfig:
+    """A diffusion transformer refiner (Peebles & Xie, DiT); the defaults
+    are DiT-XL/2. It runs on the space-to-depth grid of [x_t ‖ x̄] with the
+    conditioning features concatenated, cut into ``patch``² tokens."""
+    hidden: int = 1152
+    depth: int = 28
+    heads: int = 16
+    patch: int = 2
+    mlp_ratio: float = 4.0
+    # The output's second half (DiT's learned variance) is computed and not
+    # read: DDIM at η = 0 needs the mean alone.
+    learn_sigma: bool = True
+    # Space-to-depth factor of the image before the patch embed.
+    space_to_depth: int = 4
+    # Set by ModelConfig.validated(): image channels in ([x_t ‖ x̄] or
+    # x_t) and the conditioning feature channels.
+    in_channels: int = 6
+    cond_channels: int = 32
+
+    @property
+    def mlp_hidden(self) -> int:
+        return int(self.hidden * self.mlp_ratio)
+
+    @property
+    def token_stride(self) -> int:
+        """Image pixels per token along each axis."""
+        return self.space_to_depth * self.patch
+
+
+@dataclasses.dataclass(frozen=True)
 class ScheduleConfig:
     kind: str = "cosine"
     num_steps: int = 1000
@@ -122,6 +155,10 @@ class ModelConfig:
     codec: CodecConfig = CodecConfig()
     cond: ConditioningConfig = ConditioningConfig()
     unet: UNetConfig = UNetConfig()
+    # The refiner's kind: "unet", or "dit" (the DiT of ``dit``; the UNet's
+    # block then goes unused).
+    refiner: str = "unet"
+    dit: DiTConfig = DiTConfig()
     schedule: ScheduleConfig = ScheduleConfig()
     cond_dropout_prob: float = 0.1
     # UNet output parameterization: "eps", "x0" or "residual"
@@ -130,8 +167,30 @@ class ModelConfig:
     t_low_frac: float = 0.0
     t_low_prob: float = 0.0
 
+    @property
+    def grid_divisor(self) -> int:
+        """What an image side must be a multiple of for the refiner's
+        down and up path."""
+        if self.refiner == "dit":
+            return self.dit.token_stride
+        return self.unet.patch_size * 2 ** (len(self.unet.channel_mult) - 1)
+
     def validated(self) -> "ModelConfig":
-        """Rewrite the UNet conditioning dims to match the conditioning head."""
+        """Rewrite the refiner's conditioning dims to match the conditioning
+        head."""
+        if self.refiner not in REFINERS:
+            raise ValueError(f"unknown refiner {self.refiner!r}; expected "
+                             f"one of {REFINERS}")
+        if self.refiner == "dit":
+            d = self.dit
+            if d.hidden % d.heads or d.hidden % 4:
+                raise ValueError(f"dit.hidden {d.hidden} must divide into "
+                                 f"dit.heads {d.heads} and into 4 (the 2-D "
+                                 f"position embedding)")
+            if PAD_MULTIPLE % d.token_stride:
+                raise ValueError(
+                    f"dit.space_to_depth × dit.patch = {d.token_stride} must "
+                    f"divide the padded image's multiple {PAD_MULTIPLE}")
         if self.prediction not in ("eps", "x0", "residual"):
             raise ValueError(f"unknown prediction mode {self.prediction!r}")
         if self.prediction == "residual" and not self.codec.synthesis:
@@ -150,12 +209,19 @@ class ModelConfig:
             in_channels=6 if self.codec.synthesis else 3,
             cond_channels=self.cond.feature_channels,
             cond_token_dim=self.cond.token_dim)
+        dit = self.dit
+        if self.refiner == "dit":
+            dit = dataclasses.replace(
+                dit, in_channels=6 if self.codec.synthesis else 3,
+                cond_channels=self.cond.feature_channels)
         cond = dataclasses.replace(
             self.cond, latent_factor=self.codec.latent_factor,
-            # Emit conditioning features at the UNet's post-patch grid.
-            output_stride=self.unet.patch_size)
+            # Emit conditioning features at the refiner's input grid: the
+            # UNet's post-patch grid, or the DiT's space-to-depth grid.
+            output_stride=(self.dit.space_to_depth if self.refiner == "dit"
+                           else self.unet.patch_size))
         return dataclasses.replace(self, codec=self.codec.validated(),
-                                   unet=unet, cond=cond)
+                                   unet=unet, dit=dit, cond=cond)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -221,6 +287,11 @@ class Config:
     workdir: str = os.path.join(tempfile.gettempdir(), "tpucdc")
 
     def validated(self) -> "Config":
+        if self.model.refiner == "dit" and self.sample.cache_period > 1:
+            raise ValueError(
+                "block-cached DDIM (sample.cache_period > 1) reuses the "
+                "UNet's deep segment: the DiT refiner has none; set "
+                "sample.cache_period=1")
         return dataclasses.replace(self, model=self.model.validated())
 
 

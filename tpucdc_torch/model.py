@@ -1,6 +1,8 @@
 """The model: codec front end (g_a, h_a, h_s, the z prior, the context entropy
 model, the variable-rate gains), the conditioning head, g_s and the
-conditional UNet, mirroring tpucdc/model.py.
+conditional refiner, mirroring tpucdc/model.py. The refiner is the UNet
+(``unet``), or with ``config.refiner == "dit"`` a diffusion transformer
+(``dit``, ``diffusion.dit``), which the JAX package does not have.
 
 One ``nn.Module`` holding every submodule under the JAX package's names, so
 a flax checkpoint maps onto it key for key (``utils.weights``). ``forward``
@@ -24,7 +26,7 @@ from tpucdc_torch.codec import (AnalysisTransform, ChannelARContext,
                                 SynthesisTransform, checkerboard_mask)
 from tpucdc_torch.codec.quantization import quantize_dequantize, ste_round
 from tpucdc_torch.config import ModelConfig
-from tpucdc_torch.diffusion import ConditioningHead, UNet
+from tpucdc_torch.diffusion import ConditioningHead, DiT, UNet
 from tpucdc_torch.runtime import DEFAULT_POLICY, Policy
 from tpucdc_torch.utils.profiling import span
 
@@ -41,7 +43,10 @@ class CDCModel(nn.Module):
         self.g_s = SynthesisTransform(codec, policy) if codec.synthesis else None
         self.cond_head = ConditioningHead(cfg.cond, codec.latent_channels,
                                           policy)
-        self.unet = UNet(cfg.unet, policy)
+        if cfg.refiner == "dit":
+            self.dit = DiT(cfg.dit, policy)
+        else:
+            self.unet = UNet(cfg.unet, policy)
         n, m = codec.hidden_channels, codec.latent_channels
         if codec.context == "checkerboard":
             self.context = CheckerboardContext(n, m, codec.scale_min, policy)
@@ -151,7 +156,7 @@ class CDCModel(nn.Module):
             x_t = sab * x + s1mab * eps
             unet_in = (x_t if x_bar_in is None
                        else torch.cat([x_t, x_bar_in.to(x_t.dtype)], dim=-1))
-            net_out = self.unet(unet_in, t, cond_f, cond_t)
+            net_out = self.refiner(unet_in, t, cond_f, cond_t)
 
         with span("model.rate"):
             bpp_y, bpp_z = self._bpp(x, lik_y, lik_z)
@@ -366,8 +371,13 @@ class CDCModel(nn.Module):
             raise ValueError("x_bar passed to a model without codec.synthesis")
         return x_t
 
+    @property
+    def refiner(self) -> nn.Module:
+        """The denoiser: the UNet or the DiT."""
+        return self.dit if self.config.refiner == "dit" else self.unet
+
     def denoise(self, x_t, t, cond_f, cond_t, x_bar=None) -> torch.Tensor:
-        return self.unet(self._with_bar(x_t, x_bar), t, cond_f, cond_t)
+        return self.refiner(self._with_bar(x_t, x_bar), t, cond_f, cond_t)
 
     def denoise_fresh(self, x_t, t, cond_f, cond_t, x_bar=None):
         """Full forward → (net output, deep-block cache) for cached sampling."""

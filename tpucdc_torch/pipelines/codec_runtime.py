@@ -27,8 +27,8 @@ Decode (``decompress``):
      ``guidance`` ≠ 1 its net call is batch-doubled classifier-free
      guidance, with ``sample.cache_period`` > 1 it is block-cached DDIM,
      with ``sample.sampler == "ddpm"`` the ancestral sampler over all T
-     steps. On the card the plain DDIM and DDPM loops replay the UNet step
-     as a CUDA graph (``sampling.graphed``).
+     steps. On the card the plain DDIM and DDPM loops replay the refiner's
+     step (the UNet's or the DiT's) as a CUDA graph (``sampling.graphed``).
 
 ``decompress_tiled`` decodes a large image as one batch of overlapping tiles
 and blends them on the host. ``compress_many`` / ``decompress_many`` are the
@@ -64,7 +64,7 @@ import torch
 import torch.nn.functional as F
 
 from tpucdc_torch.codec import GaussianConditional, checkerboard_mask
-from tpucdc_torch.config import Config
+from tpucdc_torch.config import PAD_MULTIPLE, Config
 from tpucdc_torch.entropy import (BitstreamHeader, RansCodec, read_bitstream,
                                   with_header_gamma, with_header_gamma_grid,
                                   write_bitstream)
@@ -80,8 +80,6 @@ from tpucdc_torch.sampling import (ddim_sample, ddim_sample_blockcached,
                                    make_batched_cfg_eps_fn)
 from tpucdc_torch.sampling.graphed import GraphedDenoiser
 from tpucdc_torch.utils.profiling import span
-
-PAD_MULTIPLE = 64  # g_a 16× · h_a 4×
 
 
 def pad_image(img: np.ndarray, multiple: int = PAD_MULTIPLE):
@@ -496,9 +494,10 @@ class CodecRuntime:
                 step_noise) -> torch.Tensor:
         """The sampler of ``_device_stage``: x₀ [B, ph, pw, 3] in f32.
 
-        The plain DDIM and the DDPM loops call the UNet through the
-        runtime's ``GraphedDenoiser`` (a CUDA graph a shape on the card);
-        block-cached DDIM calls it eagerly."""
+        The plain DDIM and the DDPM loops call the refiner (the UNet or the
+        DiT, ``CDCModel.denoise``) through the runtime's
+        ``GraphedDenoiser`` (a CUDA graph a shape on the card); block-cached
+        DDIM, UNet-only, calls it eagerly."""
         if generator is None:
             generator = torch.Generator(self.device).manual_seed(0)
         model = self.model
@@ -951,13 +950,14 @@ class CodecRuntime:
                 steps = hdr.steps or sample.steps
             if steps == 0 and not self._synth:
                 raise ValueError("steps=0 (mean decode) needs codec.synthesis")
-            ucfg = self.config.model.unet
-            divisor = ucfg.patch_size * 2 ** (len(ucfg.channel_mult) - 1)
+            divisor = self.config.model.grid_divisor
             extent = tile + 2 * halo
             if extent % divisor:
                 raise ValueError(
                     f"tile+2*halo={extent} must be divisible by {divisor} "
-                    f"(patch_size * 2^(levels-1)) for the UNet's down/up path")
+                    f"for the refiner's down and up path (the UNet's "
+                    f"patch_size * 2^(levels-1), the DiT's space_to_depth * "
+                    f"patch)")
             plan = make_tile_plan(ph, pw, tile=tile, halo=halo)
             y_np = self._fetch(y_hat)
             with span("codec.tile_split"):

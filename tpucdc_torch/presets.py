@@ -1,13 +1,14 @@
 """Config presets: the CPU-test ``tiny`` model, the large ``flagship`` with its
-sweep axes, and the two trained models."""
+sweep axes, the two trained models, and the served flagship with a DiT-XL/2
+refiner."""
 
 from __future__ import annotations
 
 import dataclasses
 
 from tpucdc_torch.config import (CodecConfig, ConditioningConfig, Config,
-                                 ModelConfig, SampleConfig, ScheduleConfig,
-                                 TrainConfig, UNetConfig)
+                                 DiTConfig, ModelConfig, SampleConfig,
+                                 ScheduleConfig, TrainConfig, UNetConfig)
 
 
 def tiny() -> Config:
@@ -136,3 +137,20 @@ def vr_wide_serving() -> Config:
                                 context_groups=4, num_qualities=3)
     return dataclasses.replace(
         cfg, model=dataclasses.replace(cfg.model, codec=codec)).validated()
+
+
+def dit_xl2_serving() -> Config:
+    """``flagship_serving()``'s codec, conditioning head and sample block
+    with a DiT-XL/2 refiner at its published widths (Peebles & Xie,
+    arXiv:2212.09748; ``DiT_XL_2`` in facebookresearch/DiT): 28 blocks,
+    hidden 1152, 16 heads of 72, patch 2, MLP 4608, the learned σ half,
+    adaLN-Zero. It runs on the flagship's space-to-depth-4 grid: a 768×512
+    image is 96×64 = 6144 tokens. The repo holds no trained DiT: serve it
+    with the flagship's weights for the codec and head and the refiner
+    drawn (``api.load_model``)."""
+    cfg = flagship_serving()
+    model = dataclasses.replace(
+        cfg.model, refiner="dit",
+        dit=DiTConfig(hidden=1152, depth=28, heads=16, patch=2,
+                      mlp_ratio=4.0, learn_sigma=True))
+    return dataclasses.replace(cfg, model=model).validated()

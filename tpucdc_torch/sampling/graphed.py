@@ -1,7 +1,8 @@
 """The refiner's denoiser step replayed as a CUDA graph.
 
 A UNet forward at serving size is ~1000 small operations, and the host takes
-longer to issue them from Python than the card takes to run them.
+longer to issue them from Python than the card takes to run them; a DiT
+forward (28 blocks) is as many again. The refiner is either one.
 ``GraphedDenoiser`` runs a net function ``fn(x_t, t, cond_f, cond_t, x_bar)``
 (``CDCModel.denoise``, from ``CodecRuntime._sample``) as a
 ``torch.cuda.CUDAGraph``: the first call of an input shape captures one
@@ -35,7 +36,8 @@ graph holds the buffer it was captured with.
 wrappers: the warm-up and the capture are set back, and each replay adds
 the captured forward's count, so a graphed decode counts what an eager one
 does. A capture opens the span ``unet.capture`` [kernels], a replay
-``unet.replay``; the UNet's block spans open in the eager forwards only.
+``unet.replay`` (whichever the refiner); the refiner's block spans
+(``unet.*``, ``dit.*``) open in the eager forwards only.
 """
 
 from __future__ import annotations

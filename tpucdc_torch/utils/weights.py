@@ -7,14 +7,18 @@ carry the flax names, so the mapping is mechanical:
 
   * flax list members ``down_res_0_0`` become ``down_res.0.0`` (ModuleLists),
     as do the context models' ``heads_G_I``, ``anchor_heads_G_I``,
-    ``ctx_convs_G`` and ``fuse_G_I``;
+    ``ctx_convs_G`` and ``fuse_G_I``, and the DiT's ``blocks_I``;
   * a resampler's auto-named ``Conv_0`` is the port's ``conv``;
   * ``kernel`` becomes ``weight``: a conv's HWIO is transposed to OIHW, a
     Dense (in, out) to (out, in), and a ConvTranspose kernel is flipped in
     both spatial axes and laid out [in, out, kh, kw];
   * GN ``scale``/``bias``, GDN ``beta_r``/``gamma_r``, the factorized-prior
-    arrays and the variable-rate ``gains``/``inv_gains`` are copied as they
-    are.
+    arrays, the variable-rate ``gains``/``inv_gains`` and the DiT's
+    ``null_class`` are copied as they are.
+
+The DiT refiner (``diffusion.dit``) has no JAX counterpart; its arrays take
+the same layout under ``['params']['dit']``, e.g.
+``['params']['dit']['blocks_0']['qkv']['kernel']``.
 
 Every array of a checkpoint maps onto the model, so
 ``CDCModel.load_state_dict(strict=True)`` raises on a key either side lacks.
@@ -25,8 +29,9 @@ layout, which ``save_params_npz`` writes and JAX's ``load_params_npz`` reads.
 ``init_weights`` is the training initialisation, flax's in distribution and
 the JAX package's constants exactly. ``draw_weights`` fills a model that
 serves without a checkpoint (the large ``flagship`` preset) from a seeded
-generator; it draws the UNet's zero-initialised head too, so it is no
-training initialisation.
+generator; it draws the UNet's zero-initialised head and the DiT's
+zero-initialised adaLN and final layers too, so it is no training
+initialisation.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ import torch
 
 _LIST_MEMBER = re.compile(
     r"^(down_res|down_attn|down_xattn|up_res|up_attn|up_xattn|"
-    r"downsamplers|upsamplers|heads|anchor_heads|ctx_convs|fuse)"
+    r"downsamplers|upsamplers|heads|anchor_heads|ctx_convs|fuse|blocks)"
     r"_(\d+(?:_\d+)?)$")
 _TRANSPOSED = re.compile(r"^(g_s|h_s)\.deconv\d+$")
 
@@ -119,7 +124,7 @@ def _flax_module_path(parts: list[str]) -> list[str]:
 
 _LIST_NAMES = {"down_res", "down_attn", "down_xattn", "up_res", "up_attn",
                "up_xattn", "downsamplers", "upsamplers", "heads",
-               "anchor_heads", "ctx_convs", "fuse"}
+               "anchor_heads", "ctx_convs", "fuse", "blocks"}
 
 
 def params_to_jax(state: dict) -> dict:
@@ -184,7 +189,10 @@ def init_weights(model: torch.nn.Module,
     JAX package's constants: every bias 0, GroupNorm scales 1 and biases 0,
     GDN β_r = 1 and γ_r = 0.1·I, the factorized prior's matrices, factors
     and quantiles (``FactorizedPrior.reset_parameters``), the gains 1, and
-    the UNet's output convolution 0.
+    the UNet's output convolution 0. A DiT refiner is initialised as DiT
+    does where the JAX package has no constant: adaLN-Zero (every
+    modulation Dense and the final Dense 0) and the null class row
+    N(0, 0.02²).
     """
     from tpucdc_torch.codec.entropy_models import FactorizedPrior
     from tpucdc_torch.codec.transforms import GDN
@@ -216,6 +224,8 @@ def init_weights(model: torch.nn.Module,
         leaf = name.rsplit(".", 1)[-1]
         if leaf.endswith("scale") or leaf in ("gains", "inv_gains"):
             p.fill_(1.0)
+        elif leaf == "null_class":
+            p.copy_(0.02 * torch.randn(p.shape, generator=generator))
         elif leaf.endswith("bias"):
             p.zero_()
         else:
@@ -223,6 +233,11 @@ def init_weights(model: torch.nn.Module,
     unet = getattr(model, "unet", None)
     if unet is not None:
         unet.conv_out.weight.zero_()
+    dit = getattr(model, "dit", None)
+    if dit is not None:
+        for dense in [b.adaLN for b in dit.blocks] + [dit.final_adaLN,
+                                                      dit.final_linear]:
+            dense.weight.zero_()
 
 
 @torch.no_grad()
@@ -234,7 +249,9 @@ def draw_weights(module: torch.nn.Module, seed: int,
     device. Biases, norm scales and everything else keep the values they were
     constructed with. The UNet's output convolution, which flax initialises
     to zero, is drawn like the rest: with a zero head every net output would
-    be zero, whatever the layers before it computed.
+    be zero, whatever the layers before it computed. So are the DiT's adaLN
+    modulations and final Dense, which DiT initialises to zero: otherwise
+    every block would be the identity.
     """
     gen = torch.Generator().manual_seed(seed)
     for name, p in module.named_parameters():
