@@ -9,7 +9,8 @@ in order; any failure raises, exits non-zero and prints no result line:
                 power limit.
   2. build    — builds the CUDA kernels (nvcc, sm_90a) and the rANS host
                 coder from the sources in the checkout; prints seconds and
-                ptxas' register/spill lines.
+                ptxas' register/spill lines; attention.o must hold HMMA
+                (mma.sync) and attention_sm90.o HGMMA (wgmma) instructions.
   3. kernels  — every kernel against its plain PyTorch version on the card,
                 at every shape the 768×512 serving decode gives it (found by
                 one decode first; attention on the strided head views the
@@ -43,7 +44,8 @@ in order; any failure raises, exits non-zero and prints no result line:
                 same for ``dit_xl2_serving()`` (the flagship's codec and
                 head, a DiT-XL/2 drawn from a seed), graphed as served: 3
                 GN+SiLU launches (the head) and 140 attention launches (28
-                blocks × 5 steps), no more.
+                blocks × 5 steps), no more, all 140 of them
+                attention_mma_kernel_sm90 by the profiler's names.
 
   7. encode   — the flagship encodes the 384×512 crop of the fixture with
                 ``compress(optimize_gamma="spatial")`` under F32_POLICY: the
@@ -460,15 +462,24 @@ def main() -> None:
         if "registers" in line or "spill" in line or line.startswith("=="):
             say("build", line.strip())
     REPORT["build_s"] = build_s
-    # The bf16 attention kernel must hold tensor-core instructions.
+    # The bf16 attention kernels must hold tensor-core instructions: HMMA
+    # (mma.sync: d <= 64, and the general d <= 128) in attention.o, HGMMA
+    # (wgmma: the Hopper design for d > 64) in attention_sm90.o.
     cuobjdump = pathlib.Path(_kernels._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run(
-        [str(cuobjdump), "-sass", str(_kernels.BUILD_DIR / "attention.o")],
-        capture_output=True, text=True, check=True).stdout
-    hmma = sum("HMMA" in line for line in sass.splitlines())
-    say("build", f"attention.o: {hmma} HMMA (tensor-core) instructions")
+
+    def sass_count(obj, op):
+        sass = subprocess.run(
+            [str(cuobjdump), "-sass", str(_kernels.BUILD_DIR / obj)],
+            capture_output=True, text=True, check=True).stdout
+        return sum(op in line for line in sass.splitlines())
+    hmma = sass_count("attention.o", "HMMA")
+    hgmma = sass_count("attention_sm90.o", "HGMMA")
+    say("build", f"attention.o: {hmma} HMMA, attention_sm90.o: {hgmma} "
+        f"HGMMA (tensor-core) instructions")
     check(hmma > 0, "no HMMA instruction in the attention kernel")
+    check(hgmma > 0, "no HGMMA instruction in the attention kernel")
     REPORT["attention_hmma_instructions"] = hmma
+    REPORT["attention_hgmma_instructions"] = hgmma
 
     # ---- model and runtimes ----
     cfg = port.flagship_serving()
@@ -929,6 +940,20 @@ def main() -> None:
     expected = {k: sum(dit_seen[k].values()) for k in dit_seen}
     check(dit_launches == expected,
           f"DiT launches {dit_launches} != shapes {expected}")
+    # Which d > 64 kernel those 140 were: the Hopper instantiation's launches
+    # in one graphed DiT decode, by name from the profiler (the wrappers'
+    # count does not tell the two apart).
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rtD.decompress(blob768)
+        torch.cuda.synchronize()
+    dit_sm90 = sum(e.count for e in prof.key_averages()
+                   if "attention_mma_kernel_sm90" in e.key)
+    say("main", f"DiT-XL/2 serving decode: {dit_sm90} launches of "
+        f"attention_mma_kernel_sm90 (profiler)")
+    check(dit_sm90 == dit_launches["attention"],
+          f"{dit_sm90} of the DiT decode's {dit_launches['attention']} "
+          f"attention launches took attention_mma_kernel_sm90")
+    REPORT["dit_decode_sm90_launches"] = dit_sm90
     del rtD, dmodel
     torch.cuda.empty_cache()
 
@@ -1532,7 +1557,9 @@ def main() -> None:
                          else "operations"),
             "library_ms": p["library_ms"],
             **{f"dit_decode_{k}": per_dit[name][k]
-               for k in ("ms", "plain_ms", "bound_ms", "library_ms")}})
+               for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            **({"dit_decode_sm90_launches": dit_sm90}
+               if name == "attention" else {})})
     REPORT["kernels"] = kernels
     REPORT["device_ms"] = {name: per[name]["device_ms"] for name in per}
     REPORT["dit_decode_device_ms"] = {name: per_dit[name]["device_ms"]

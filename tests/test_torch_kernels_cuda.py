@@ -57,7 +57,14 @@ ATTN_CASES = [(1, 4, 1536, 1536, 24), (1, 4, 100, 77, 24),
     # head width, a key count past one staged tile of every split.
     (1, 2, 1, 300, 24), (1, 2, 50, 1, 24), (2, 3, 40, 65, 24),
     (1, 2, 70, 130, 8), (1, 2, 70, 130, 40), (1, 2, 70, 130, 64),
-    (1, 2, 70, 130, 128), (1, 1, 17, 1000, 16), (1, 2, 31, 257, 12)]
+    (1, 2, 70, 130, 128), (1, 1, 17, 1000, 16), (1, 2, 31, 257, 12)] + [
+    # The d > 64 design (attention_mma_kernel_sm90) at each width of part B
+    # (d 72 and 80: 16 columns; 96: 32; 104 and 128: 64), ragged rows and
+    # keys: one key, a key past a tile, a row past a block; then d = 65, which
+    # takes the general kernel.
+    (1, 3, 200, 333, 72), (2, 2, 129, 1, 72), (1, 2, 130, 257, 80),
+    (1, 1, 64, 6145, 96), (1, 1, 17, 1000, 104), (2, 1, 300, 129, 128),
+    (1, 2, 100, 77, 65)]
 
 
 @pytest.fixture
@@ -175,21 +182,77 @@ def test_attention_kernel_unaligned_strides(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-def test_attention_kernel_large_scores(cuda, dtype):
+@pytest.mark.parametrize("d", [24, 72])
+def test_attention_kernel_large_scores(cuda, dtype, d):
     """Scores 50 times larger: the softmax must not overflow."""
     tdt = DTYPES[dtype][0]
     gen = torch.Generator(cuda).manual_seed(9)
-    q, k, v = (torch.randn(1, 4, 200, 24, generator=gen, device=cuda).to(tdt)
+    q, k, v = (torch.randn(1, 4, 200, d, generator=gen, device=cuda).to(tdt)
                for _ in range(3))
-    got = attention(q, k, v, scale=50.0 * 24 ** -0.5)
+    got = attention(q, k, v, scale=50.0 * d ** -0.5)
     torch.cuda.synchronize()
     assert torch.isfinite(got.float()).all()
-    want = attention_reference(q, k, v, scale=50.0 * 24 ** -0.5)
+    want = attention_reference(q, k, v, scale=50.0 * d ** -0.5)
     if dtype == "f32":
         # 50x the scores carry 50x their rounding into the exponent.
         torch.testing.assert_close(got, want, atol=50 * 2e-5, rtol=0)
     else:
         _attn_check(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("nq,nk", [(6144, 6144), (200, 333)])
+def test_attention_kernel_dit_head_views(cuda, nq, nk, dtype):
+    """d = 72: q, k and v as the head views of one [B, N, 3·H·d] projection,
+    as the DiT's block hands them over, against the plain version and
+    bit-equal to contiguous copies."""
+    tdt = DTYPES[dtype][0]
+    b, h, d = 1, 16 if nq == 6144 else 3, 72
+    gen = torch.Generator(cuda).manual_seed(nq + nk + d)
+    qkv = torch.randn((b, max(nq, nk), 3, h, d), generator=gen,
+                      device=cuda).to(tdt)
+    q, k, v = (qkv[:, :n, i].transpose(1, 2)
+               for i, n in enumerate((nq, nk, nk)))
+    assert not q.is_contiguous()
+    got = attention(q, k, v)
+    torch.cuda.synchronize()
+    _attn_check(got, attention_reference(q, k, v), dtype)
+    assert torch.equal(got, attention(q.contiguous(), k.contiguous(),
+                                      v.contiguous()))
+
+
+def _attention_kernels(fn) -> set:
+    """Names of the attention kernels one call of fn launches (profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()
+            if "attention_mma_kernel" in e.key
+            or "attention_fma_kernel" in e.key}
+
+
+def test_attention_dispatch_by_head_dim(cuda):
+    """Which kernel each bf16 shape takes: d <= 64 the mma.sync design, d > 64
+    on aligned views the Hopper design, and d > 64 off 16 bytes (d = 65, or
+    a head slice at an odd pitch) the general d <= 128 instantiation."""
+    gen = torch.Generator(cuda).manual_seed(6)
+
+    def qkv(d, pitch):
+        wide = torch.randn(3, 1, 2, 150, pitch, generator=gen,
+                           device=cuda).bfloat16()
+        return [wide[i][..., pitch - d:] for i in range(3)]
+    cases = [(72, 72, "attention_mma_kernel_sm90<"),
+             (128, 128, "attention_mma_kernel_sm90<"),
+             (65, 65, "attention_mma_kernel<128, 2, 2>"),
+             (72, 75, "attention_mma_kernel<128, 2, 2>"),
+             (24, 24, "attention_mma_kernel<32, 4, 4>")]
+    for d, pitch, kernel in cases:
+        q, k, v = qkv(d, pitch)
+        names = _attention_kernels(lambda: attention(q, k, v))
+        assert len(names) == 1 and kernel in min(names), (d, pitch, names)
+        _attn_check(attention(q, k, v), attention_reference(q, k, v), "bf16")
 
 
 def test_kernels_raise_instead_of_falling_back(cuda):

@@ -138,16 +138,20 @@ def test_attention_on_head_views(b, h, nq, nk, d, dtype):
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("tile,splits", [(64, 4), (32, 2), (16, 1)])
+@pytest.mark.parametrize("tile,splits", [(64, 4), (32, 2), (16, 1), (128, 1)])
 @pytest.mark.parametrize("b,h,nq,nk,d", [(1, 4, 100, 77, 24),
                                          (1, 2, 40, 300, 24),
                                          (2, 2, 33, 65, 64),
-                                         (1, 2, 17, 1, 8)])
+                                         (1, 2, 17, 1, 8),
+                                         (1, 2, 200, 300, 72)])
 def test_attention_tiled_mirror_matches_jax(b, h, nq, nk, d, tile, splits,
                                             dtype):
     """The kernel's arithmetic (key tiles, running max, P rounded against
     the running max, key splits merged at the end, ragged last tile) in plain
-    PyTorch: f32 atol 2e-5; bf16 2e-2·max|reference|, the kernel's bound."""
+    PyTorch: f32 atol 2e-5; bf16 2e-2·max|reference|, the kernel's bound.
+    (64, 4) is the d <= 64 design's tile and split, (128, 1) the d > 64
+    design's, whose shape here is the DiT's head width with ragged rows and
+    keys."""
     jdt, tdt, _ = DTYPES[dtype]
     rng = np.random.default_rng(nq + nk + d + tile)
     q, k, v = (rng.standard_normal(s).astype(np.float32)

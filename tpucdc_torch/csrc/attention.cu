@@ -1,5 +1,5 @@
-// Exact softmax attention for the UNet's low-resolution levels, for Hopper
-// (sm_90a).
+// Exact softmax attention for Hopper (sm_90a): the UNet's low-resolution
+// levels (d <= 64) and the DiT refiner's blocks (d = 72).
 //
 // Replaces: tpucdc/ops/pallas/flash_attention.py::flash_attention_pallas
 // (_run, kernel _attn_kernel). Same function: q [B,H,Nq,d], k/v [B,H,Nk,d],
@@ -11,31 +11,54 @@
 // [B,N,H*d] projection is read in place and the output is written as
 // [B,N,H,d] with no transposing copy around the launch.
 //
-// What bounds it on the H100: at the flagship's shape (1,4,1536,24) a launch
-// moves 1.2 MB and does 0.9 GFLOP, under 1 µs either way at peak rates. What
-// is scarce is latency and warps in flight: 6144 query rows are 384 warps of
-// 16 rows for 528 warp schedulers.
+// Dispatch (tpucdc_attention): f32 takes attention_fma_kernel; bf16 with
+// d <= 64 takes attention_mma_kernel<16|32|64, 4, 4>; bf16 with d > 64 takes
+// attention_mma_kernel_sm90 (attention_sm90.cu) where every pointer and
+// stride is 16-byte aligned, d % 8 == 0 and the scale is positive, and
+// attention_mma_kernel<128, 2, 2> otherwise. The two bf16 designs answer
+// opposite bounds.
 //
-// bf16 design (attention_mma_kernel): both products run on the tensor cores
-// with mma.sync.m16n8k16 (bf16 in, f32 accumulate). A block is ROWW x KS
-// warps: ROWW row-warps of 16 query rows each, and the keys of every staged
-// tile split over KS warps (4 x 4 here), so that the flagship's launch has 4x
-// as many warps as row tiles; the KS partial (max, sum, O) of a row are merged
-// through shared memory at the end. K and V tiles stay bf16 in shared memory,
-// arrive by 16-byte cp.async into two buffers (the next tile loads while this
-// one is used), with a row pitch of DK+8 elements so that ldmatrix reads hit
-// 32 distinct banks. Q fragments live in registers for the whole kernel; d is
-// zero-padded to DK in {16,32,64,128} on the QK^T side only; the PV side
-// skips output tiles past d (d=24: three n8 tiles). The softmax is online per
-// 64-key tile, in f32 on the accumulator fragments: row max and row sum
-// reduce over the 4 threads of a quad by shuffle, one rescale per tile, exp2
-// with log2(e) folded into the scale. Ragged key columns are set to -inf
-// before the max; ragged query rows are computed and not stored. P is
-// rounded to bf16 straight out of the S accumulators into A fragments (the
-// m16n8 C layout of two neighbouring tiles is the m16k16 A layout) and never
-// touches shared memory; V's B fragments come from ldmatrix.trans. Where a
-// pointer or a stride is not 16-byte aligned, or d is not a multiple of 8,
-// the same kernel loads and stores element by element.
+// bf16, d <= 64 (attention_mma_kernel): latency. At the flagship's shape
+// (1,4,1536,24) a launch moves 1.2 MB and does 0.9 GFLOP, under 1 µs either
+// way at peak rates; what is scarce is warps in flight: 6144 query rows are
+// 384 warps of 16 rows for 528 warp schedulers. Both products run on the
+// tensor cores with mma.sync.m16n8k16 (bf16 in, f32 accumulate). A block is
+// ROWW x KS warps: ROWW row-warps of 16 query rows each, and the keys of
+// every staged tile split over KS warps (4 x 4 here), so that the flagship's
+// launch has 4x as many warps as row tiles; the KS partial (max, sum, O) of
+// a row are merged through shared memory at the end. K and V tiles stay bf16
+// in shared memory, arrive by 16-byte cp.async into two buffers (the next
+// tile loads while this one is used), with a row pitch of DK+8 elements so
+// that ldmatrix reads hit 32 distinct banks. Q fragments live in registers
+// for the whole kernel; d is zero-padded to DK in {16,32,64,128} on the QK^T
+// side only; the PV side skips output tiles past d (d=24: three n8 tiles).
+// The softmax is online per 64-key tile, in f32 on the accumulator
+// fragments: row max and row sum reduce over the 4 threads of a quad by
+// shuffle, one rescale per tile, exp2 with log2(e) folded into the scale.
+// Ragged key columns are set to -inf before the max; ragged query rows are
+// computed and not stored. P is rounded to bf16 straight out of the S
+// accumulators into A fragments (the m16n8 C layout of two neighbouring
+// tiles is the m16k16 A layout) and never touches shared memory; V's B
+// fragments come from ldmatrix.trans. Where a pointer or a stride is not
+// 16-byte aligned, or d is not a multiple of 8, the same kernel loads and
+// stores element by element.
+//
+// bf16, d > 64 (attention_mma_kernel_sm90, attention_sm90.cu): throughput.
+// At the DiT's shape (1,16,6144,72) a launch does 174 GFLOP (0.176 ms at 989
+// TFLOP/s) on 57 MB, so the tensor cores bound it; behind them come exp2 on
+// the special-function units (one per score, at d = 72 nearly as long as the
+// products) and the K and V tiles that every 128-row block streams again
+// from L2 (1.4 GB a launch; on an H100 the loads alone take 0.29 ms of the
+// kernel's 0.40). The design is Hopper's: wgmma on 64-row warpgroups (S =
+// Q·Kᵀ from shared memory at depth 80, not 128; O += P·V with P in
+// registers), K and V tiles brought by TMA into a ring of mbarrier-signalled
+// stages by a producer warpgroup that gives its registers to the two
+// consumer warpgroups, and the consumers' products issued in turns, so that
+// one's softmax overlaps the other's products. Its arithmetic is the d <= 64
+// design's: f32 scores, running max and sum, exp2 with log2(e) folded into
+// the scale, P rounded to bf16 against the running max, f32 O divided by the
+// f32 sum of the unrounded P; only the key tile differs (128 keys, 64 at
+// d > 96, and no split).
 //
 // f32 design (attention_fma_kernel): full f32 on the FMA units (TF32's 10-bit
 // mantissa cannot hold the 2e-5 bound). One query row is owned by DPAD/8
@@ -54,6 +77,15 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+
+// The Hopper kernel for bf16 at d > 64 (attention_sm90.cu); -1 where it
+// does not apply.
+extern "C" int tpucdc_attention_sm90(const void* q, const void* k,
+                                     const void* v, void* out, int B, int H,
+                                     int Nq, int Nk, int d,
+                                     const long long* strides, float scale,
+                                     void* stream);
 
 namespace {
 
@@ -586,6 +618,11 @@ extern "C" int tpucdc_attention(const void* q, const void* k, const void* v,
     if (d <= 16) return launch_mma<16, R, S>(q, k, v, out, BH, p, st);
     if (d <= 32) return launch_mma<32, R, S>(q, k, v, out, BH, p, st);
     if (d <= 64) return launch_mma<64, R, S>(q, k, v, out, BH, p, st);
+    if (vec && scale > 0.f && isfinite(scale)) {
+      const int rc = tpucdc_attention_sm90(q, k, v, out, B, H, Nq, Nk, d,
+                                           strides, scale, stream);
+      if (rc != -1) return rc;
+    }
     return launch_mma<128, 2, 2>(q, k, v, out, BH, p, st);
   }
   if (d <= 16) return launch_fma<16>(q, k, v, out, BH, p, st);

@@ -24,7 +24,8 @@ import subprocess
 from tpucdc_torch.utils.build import BUILD_DIR, build_lock, is_stale
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = (CSRC / "gn_silu.cu", CSRC / "attention.cu")
+SOURCES = (CSRC / "gn_silu.cu", CSRC / "attention.cu",
+           CSRC / "attention_sm90.cu")
 LIBRARY = BUILD_DIR / "libtpucdc_torch_kernels.so"
 PTXAS_LOG = BUILD_DIR / "ptxas.log"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")

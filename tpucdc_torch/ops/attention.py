@@ -1,8 +1,11 @@
-"""Multi-head attention for the UNet's low-resolution feature maps.
+"""Multi-head attention for the UNet's low-resolution feature maps and the
+DiT refiner's blocks.
 
 On a CUDA tensor ``attention`` launches the hand-written kernel of
 ``csrc/attention.cu`` (which replaces the JAX package's Pallas kernel) for
-every shape: there is no size gate and no fallback. On a CPU tensor it runs
+every shape: there is no size gate and no fallback. That entry point takes
+bf16 at d > 64 on aligned views to its Hopper design,
+``csrc/attention_sm90.cu``, still one launch a call. On a CPU tensor it runs
 the plain version beside it.
 
 The public layout is the JAX package's ``[B, H, N, d]``, but q, k and v may
