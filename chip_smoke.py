@@ -260,12 +260,23 @@ def psnr_db(a, b) -> float:
     return float(10 * np.log10(255.0 ** 2 / max(mse, 1e-12)))
 
 
+def hyper_stage(torch, rt, z_sym):
+    """A hyperprior runtime's one y pass up to its coding: (μ on the device,
+    the uint8 row indexes on the host)."""
+    with torch.inference_mode():
+        means, scales = rt.model.h_s(rt._z_hat(z_sym))
+        idx = rt.gaussian.build_indexes(scales).to(torch.uint8)
+    return means, idx.cpu().numpy()
+
+
 class StageSplit:
     """Exclusive wall time of a runtime's coding stages, by patching them on
     the instance with timers. Each timed call ends with a synchronize, so
     device work lands in the stage that queued it; the fetch does not
     synchronize first, so it also carries the rounding queued before it.
-    Inside the γ search nothing is split: it is one stage."""
+    Inside the γ search nothing is split: it is one stage. The entropy
+    parameters are the y schedule's features and passes (h_s and the
+    context model) and the row indexes built from their σ."""
 
     def __init__(self, torch, rt):
         self.torch, self.acc, self.stack = torch, collections.Counter(), []
@@ -273,8 +284,7 @@ class StageSplit:
         self._patched = []
         for owner, attr, name, sync_first in (
                 (rt, "_analysis", "analysis", True),
-                (rt, "_params", "entropy_params", True),
-                (rt.model, "hyper_features", "entropy_params", True),
+                (rt.gaussian, "build_indexes", "entropy_params", True),
                 (rt, "_fetch", "round_fetch", False),
                 (rt.z_codec, "encode", "z_rans", True),
                 (rt.y_codec, "encode", "y_rans", True),
@@ -282,6 +292,14 @@ class StageSplit:
             setattr(owner, attr,
                     self._wrap(getattr(owner, attr), name, sync_first))
             self._patched.append((owner, attr))
+        sched = self._schedule = rt._schedule
+        timed = functools.partial(self._wrap, name="entropy_params",
+                                  sync_first=True)
+        rt._schedule = sched._replace(
+            features=timed(sched.features),
+            passes=[p._replace(params=timed(p.params))
+                    for p in sched.passes])
+        self._rt = rt
 
     def _wrap(self, fn, name, sync_first):
         def timed(*args, **kwargs):
@@ -306,6 +324,7 @@ class StageSplit:
     def restore(self):
         for owner, attr in self._patched:
             delattr(owner, attr)
+        self._rt._schedule = self._schedule
 
 
 def unet_launches(ucfg, levels=None) -> dict:
@@ -721,7 +740,7 @@ def main() -> None:
 
     # ---- 4. fixture parity (F32_POLICY, TF32 off) ----
     hdr, z_sym, (y_bytes,), (ph, pw) = rt32._host_z_stage(blob)
-    means, idx = rt32._hyper_stage(z_sym)
+    means, idx = hyper_stage(torch, rt32, z_sym)
     y_sym = rt32.y_codec.decode(y_bytes, idx)
     mism = {"z_sym": int(np.sum(z_sym != fx["z_sym"])),
             "indexes": int(np.sum(idx != fx["indexes"])),
@@ -751,7 +770,7 @@ def main() -> None:
         f"{psnr16:.2f} dB (bound 35)")
     check(psnr16 >= 35.0, "bf16 device stage PSNR < 35 dB")
     set_policy(rt32.model.h_s, port.BF16_POLICY)
-    _, idx16 = rt32._hyper_stage(z_sym)
+    _, idx16 = hyper_stage(torch, rt32, z_sym)
     set_policy(rt32.model.h_s, port.F32_POLICY)
     flips = int(np.sum(idx16 != fx["indexes"]))
     say("parity", f"bf16 hyper stage: {flips} of {idx16.size} row indexes "
@@ -777,7 +796,7 @@ def main() -> None:
 
     full32 = host_median(lambda: rt32.decompress(blob768))
     hdr7, z7, (yb7,), (ph7, pw7) = rt16._host_z_stage(blob768)
-    m7, i7 = rt16._hyper_stage(z7)
+    m7, i7 = hyper_stage(torch, rt16, z7)
     y7 = torch.from_numpy(rt16.y_codec.decode(yb7, i7)).to(dev)
     gamma7 = cfg.sample.blend_gamma
     dev16 = host_median(lambda: rt16._device_stage(
@@ -790,7 +809,7 @@ def main() -> None:
             t = time.perf_counter()
             h, z, (yb,), (a, b) = rt._host_z_stage(blob768)
             t1 = time.perf_counter()
-            m, i = rt._hyper_stage(z)
+            m, i = hyper_stage(torch, rt, z)
             t2 = time.perf_counter()
             ys = torch.from_numpy(rt.y_codec.decode(yb, i)).to(dev)
             torch.cuda.synchronize()
@@ -1025,8 +1044,8 @@ def main() -> None:
         ``y_sym`` (JAX's) and not from the coder. Returns (row indexes that
         differ from JAX's, per pass; for each such index this side's σ
         beside the table scale of JAX's row; the assembled y symbols; μ)."""
+        passes = rt._schedule.passes
         am = port.codec.checkerboard_mask(*y_sym.shape[1:3], True)[..., 0] > 0
-        mg = 2 * y_sym.shape[-1] // len(jax_idx)
         table = np.asarray(rt.gaussian.scale_table, np.float32)
         flips, near, sigmas = [], [], []
         build = rt.gaussian.build_indexes
@@ -1037,18 +1056,21 @@ def main() -> None:
 
         def forced(_stream, idx_np):
             k = len(flips)
-            mask = am if k % 2 == 0 else ~am
+            p = passes[k]
+            mask = None if p.anchors is None else am if p.anchors else ~am
             differ = idx_np[0] != jax_idx[k]
             flips.append(int(np.sum(differ)))
             if flips[-1]:
-                sigma = sigmas[-1][:, torch.from_numpy(mask).to(dev)]
+                sigma = sigmas[-1]
+                if mask is not None:
+                    sigma = sigma[:, torch.from_numpy(mask).to(dev)]
                 for here, row in zip(sigma[0].cpu().numpy()[differ],
                                      jax_idx[k][differ]):
                     near.append({"pass": k, "sigma": float(here),
                                  "jax_row": int(row),
                                  "jax_row_scale": float(table[row])})
-            part = y_sym[..., (k // 2) * mg:(k // 2 + 1) * mg]
-            return part[:, mask].astype(np.int32)
+            part = y_sym[..., p.channels]
+            return (part if mask is None else part[:, mask]).astype(np.int32)
 
         rt.y_codec.decode, rt.gaussian.build_indexes = forced, recording_build
         try:

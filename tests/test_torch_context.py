@@ -91,11 +91,11 @@ def test_entropy_parameter_passes_match_jax(pair, dn):
     am = jax_mask(8, 12, anchor=True)
     if codec.context == "hyperprior":
         want = jm.apply(params, jnp.asarray(z), method=JaxCDCModel.hyper_decode)
-        for g, w in zip(tm.hyper_decode(t(z)), want):
+        for g, w in zip(tm.h_s(t(z)), want):
             _close(g, w, rel)
         return
     feats = jm.apply(params, jnp.asarray(z), method=JaxCDCModel.hyper_features)
-    got_feats = tm.hyper_features(t(z))
+    got_feats = tm.h_s(t(z), features=True)
     _close(got_feats, feats, rel)
     # The passes proper are compared on JAX's features, so that each pass's
     # bound is its own and not the trunk's on top.
@@ -112,19 +112,20 @@ def test_entropy_parameter_passes_match_jax(pair, dn):
 
     fnp = np.asarray(feats.astype(jnp.float32))
     mg = codec.latent_channels // codec.context_groups
+    ctx = tm.context
     if codec.context == "checkerboard":
-        both(JaxCDCModel.ctx_anchor_params, tm.ctx_anchor_params, fnp)
-        both(JaxCDCModel.ctx_nonanchor_params, tm.ctx_nonanchor_params,
+        both(JaxCDCModel.ctx_anchor_params, ctx.anchor_params, fnp)
+        both(JaxCDCModel.ctx_nonanchor_params, ctx.nonanchor_params,
              fnp, y * am)
     for g in range(codec.context_groups):
         y_prev, y_g = y[..., :g * mg], y[..., g * mg:(g + 1) * mg]
         if codec.context == "channel-ar":
-            both(JaxCDCModel.ctx_group_params, tm.ctx_group_params,
+            both(JaxCDCModel.ctx_group_params, ctx.group_params,
                  g, fnp, y_prev)
         elif codec.context == "space-channel":
-            both(JaxCDCModel.sc_anchor_params, tm.sc_anchor_params,
+            both(JaxCDCModel.sc_anchor_params, ctx.anchor_params,
                  g, fnp, y_prev)
-            both(JaxCDCModel.sc_nonanchor_params, tm.sc_nonanchor_params,
+            both(JaxCDCModel.sc_nonanchor_params, ctx.nonanchor_params,
                  g, fnp, y_prev, y_g * am)
     want = jm.apply(params, feats, jnp.asarray(y),
                     method=lambda m, f, yy: m.context(f, yy))

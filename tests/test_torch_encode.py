@@ -38,6 +38,7 @@ from tests._torch_jax_helpers import (one_torch_thread,  # noqa: F401
                                       symbols, tiny_config, to_torch_config,
                                       torch_model)
 from tpucdc_torch import CDCModel, CodecRuntime, F32_POLICY, flagship_serving
+from tpucdc_torch.codec.quantization import ste_round
 from tpucdc_torch.entropy import read_bitstream
 from tpucdc_torch.pipelines.codec_runtime import pad_image, to_model_range
 from tpucdc_torch.runtime import pin_numerics
@@ -117,6 +118,24 @@ def test_port_round_trip_is_exact(pair):
     assert y_hat.shape == y.shape and hdr2.height == 60
     # ŷ is y to within the quantization step.
     assert float((y_hat - y).abs().max()) <= 0.5 + 1e-4
+
+
+def test_coder_decodes_the_eval_quantization(pair):
+    """The ŷ the decoder reads from a fresh bitstream is, bit for bit, the
+    ỹ of eval mode (``CDCModel._entropy_params`` without noise) for the same
+    image: the coder and the eval quantization walk one pass schedule, and
+    a bitstream holds z's stream and one stream a pass."""
+    context, _, trt, img, _ = pair
+    model = trt.model
+    assert 1 + len(model.y_schedule().passes) == N_STREAMS[context]
+    y_hat, _ = trt.decode_latent(trt.compress(img))
+    x = torch.from_numpy(to_model_range(pad_image(img)[0]))[None]
+    with torch.inference_mode():
+        y, z = model.encode(x)
+        med = model.z_medians().reshape(1, 1, 1, -1)
+        y_tilde, _, _ = model._entropy_params(
+            y, ste_round(z - med) + med, None)
+    assert torch.equal(y_hat, y_tilde)
 
 
 def test_jax_decodes_the_port_bitstream_and_encoders_agree(pair):

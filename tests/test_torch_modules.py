@@ -191,6 +191,6 @@ def test_synthesis_and_hyper_synthesis_match_jax(request, which):
     z = np.round(2 * _randn(1, 2, 3, codec.hyper_channels, seed=15))
     want_m, want_s = jmodel.apply(params, jnp.asarray(z),
                                   method=JaxCDCModel.hyper_decode)
-    got_m, got_s = tm.hyper_decode(t(z))
+    got_m, got_s = tm.h_s(t(z))
     assert maxdiff(got_m, want_m) <= ATOL
     assert maxdiff(got_s, want_s) <= ATOL

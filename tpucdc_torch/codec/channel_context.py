@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpucdc_torch.codec.passes import ContextModel, Pass
 from tpucdc_torch.codec.transforms import split_mean_scale
 from tpucdc_torch.ops.layers import Conv
 from tpucdc_torch.runtime import DEFAULT_POLICY, Policy
@@ -23,7 +24,7 @@ def group_size(latent_channels: int, num_groups: int) -> int:
     return latent_channels // num_groups
 
 
-class ChannelARContext(nn.Module):
+class ChannelARContext(ContextModel):
     """(hyper features, decoded prior groups) → per-group (μ, σ)."""
 
     def __init__(self, hidden_channels: int, latent_channels: int,
@@ -52,13 +53,10 @@ class ChannelARContext(nn.Module):
         return split_mean_scale(conv1(F.silu(conv3(h, dt)), dt),
                                 self.scale_min)
 
-    def forward(self, hyper_feats: torch.Tensor, y_tilde: torch.Tensor):
-        """Full (μ, σ) over all groups, each group's context taken from
-        y_tilde's prior groups."""
+    def passes(self) -> list[Pass]:
+        """One pass a group, given the decoded groups before it."""
         mg = self.group_size
-        means, scales = [], []
-        for g in range(self.num_groups):
-            m, s = self.group_params(g, hyper_feats, y_tilde[..., :g * mg])
-            means.append(m)
-            scales.append(s)
-        return torch.cat(means, -1), torch.cat(scales, -1)
+        return [Pass(slice(g * mg, (g + 1) * mg), None,
+                     lambda f, y_prev, y_anchor, g=g:
+                     self.group_params(g, f, y_prev))
+                for g in range(self.num_groups)]

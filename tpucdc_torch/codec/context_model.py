@@ -9,24 +9,16 @@ non-anchor positions, so nothing leaks). Decoding is two dense passes.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 import torch.nn.functional as F
-from torch import nn
 
+from tpucdc_torch.codec.passes import ContextModel, Pass
 from tpucdc_torch.codec.transforms import split_mean_scale
 from tpucdc_torch.ops.layers import Conv
 from tpucdc_torch.runtime import DEFAULT_POLICY, Policy
 
 
-def checkerboard_mask(h: int, w: int, anchor: bool) -> np.ndarray:
-    """[h, w, 1] float mask; anchor=True selects (i+j) even positions."""
-    ii, jj = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
-    m = ((ii + jj) % 2 == 0) if anchor else ((ii + jj) % 2 == 1)
-    return m.astype(np.float32)[..., None]
-
-
-class CheckerboardContext(nn.Module):
+class CheckerboardContext(ContextModel):
     """(hyper features, decoded anchors) → (μ, σ) for both parities."""
 
     def __init__(self, hidden_channels: int, latent_channels: int,
@@ -54,13 +46,10 @@ class CheckerboardContext(nn.Module):
         h = F.silu(self.fuse1(h, dt))
         return split_mean_scale(self.fuse2(h, dt), self.scale_min)
 
-    def forward(self, hyper_feats: torch.Tensor, y_hat: torch.Tensor):
-        """Full (μ, σ) maps for both parities; non-anchors condition on
-        y_hat's anchors only."""
-        a_mask = torch.from_numpy(checkerboard_mask(
-            y_hat.shape[1], y_hat.shape[2], anchor=True)).to(y_hat.device)
-        m_a, s_a = self.anchor_params(hyper_feats)
-        m_na, s_na = self.nonanchor_params(hyper_feats, y_hat * a_mask)
-        means = m_a * a_mask + m_na * (1 - a_mask)
-        scales = s_a * a_mask + s_na * (1 - a_mask)
-        return means, scales
+    def passes(self) -> list[Pass]:
+        """The anchors, then the non-anchors given the decoded anchors."""
+        every = slice(None)
+        return [Pass(every, True, lambda f, y_prev, y_anchor:
+                     self.anchor_params(f)),
+                Pass(every, False, lambda f, y_prev, y_anchor:
+                     self.nonanchor_params(f, y_anchor))]

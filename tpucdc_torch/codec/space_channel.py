@@ -14,13 +14,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpucdc_torch.codec.channel_context import group_size
-from tpucdc_torch.codec.context_model import checkerboard_mask
+from tpucdc_torch.codec.passes import ContextModel, Pass
 from tpucdc_torch.codec.transforms import split_mean_scale
 from tpucdc_torch.ops.layers import Conv
 from tpucdc_torch.runtime import DEFAULT_POLICY, Policy
 
 
-class SpaceChannelContext(nn.Module):
+class SpaceChannelContext(ContextModel):
 
     def __init__(self, hidden_channels: int, latent_channels: int,
                  num_groups: int = 4, scale_min: float = 0.11,
@@ -63,19 +63,13 @@ class SpaceChannelContext(nn.Module):
         h = F.silu(f1(torch.cat([base, ctx], dim=-1), dt))
         return split_mean_scale(f2(h, dt), self.scale_min)
 
-    def forward(self, hyper_feats: torch.Tensor, y_tilde: torch.Tensor):
-        """Full (μ, σ); each position's parameters use only its causal
-        context (prior groups + same-group anchors)."""
-        am = torch.from_numpy(checkerboard_mask(
-            y_tilde.shape[1], y_tilde.shape[2], anchor=True)).to(y_tilde.device)
-        mg = self.group_size
-        means, scales = [], []
+    def passes(self) -> list[Pass]:
+        """Per group, its anchors, then its non-anchors."""
+        mg, out = self.group_size, []
         for g in range(self.num_groups):
-            y_prev = y_tilde[..., :g * mg]
-            y_g = y_tilde[..., g * mg:(g + 1) * mg]
-            m_a, s_a = self.anchor_params(g, hyper_feats, y_prev)
-            m_na, s_na = self.nonanchor_params(g, hyper_feats, y_prev,
-                                               y_g * am)
-            means.append(m_a * am + m_na * (1 - am))
-            scales.append(s_a * am + s_na * (1 - am))
-        return torch.cat(means, -1), torch.cat(scales, -1)
+            channels = slice(g * mg, (g + 1) * mg)
+            out += [Pass(channels, True, lambda f, y_prev, y_anchor, g=g:
+                         self.anchor_params(g, f, y_prev)),
+                    Pass(channels, False, lambda f, y_prev, y_anchor, g=g:
+                         self.nonanchor_params(g, f, y_prev, y_anchor))]
+        return out

@@ -58,7 +58,6 @@ import struct
 import zlib
 
 MAGIC = b"TCDC"
-VERSION = 5
 _HEADER_V2 = struct.Struct("<HHBHfB")
 _HEADER_V3 = struct.Struct("<HHBHffB")
 _HEADER_V4 = struct.Struct("<HHBHfffB")

@@ -14,6 +14,7 @@ downsampled, z a further 4×.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -23,7 +24,7 @@ from tpucdc_torch.codec import (AnalysisTransform, ChannelARContext,
                                 CheckerboardContext, FactorizedPrior,
                                 GaussianConditional, HyperAnalysis,
                                 HyperSynthesis, SpaceChannelContext,
-                                SynthesisTransform, checkerboard_mask)
+                                SynthesisTransform, passes)
 from tpucdc_torch.codec.quantization import quantize_dequantize, ste_round
 from tpucdc_torch.config import ModelConfig
 from tpucdc_torch.diffusion import ConditioningHead, DiT, UNet
@@ -48,6 +49,7 @@ class CDCModel(nn.Module):
         else:
             self.unet = UNet(cfg.unet, policy)
         n, m = codec.hidden_channels, codec.latent_channels
+        self.context = None     # the hyperprior's one pass is h_s itself
         if codec.context == "checkerboard":
             self.context = CheckerboardContext(n, m, codec.scale_min, policy)
         elif codec.context == "channel-ar":
@@ -223,52 +225,17 @@ class CDCModel(nn.Module):
 
     def _entropy_params(self, y: torch.Tensor, z_tilde: torch.Tensor,
                         u_y: Optional[torch.Tensor]):
-        """(ỹ, μ, σ): ỹ = y + u_y in training (``u_y`` given), else the
-        eval-mode quantization of every context kind, pass by pass as the
-        coder runs it."""
-        ctx = self.config.codec.context
-        if ctx == "hyperprior":
-            means, scales = self.h_s(z_tilde)
-            y_tilde = (y + u_y if u_y is not None
-                       else quantize_dequantize(y, means))
-            return y_tilde, means, scales
-        feats = self.h_s(z_tilde, features=True)
+        """(ỹ, μ, σ): ỹ = y + u_y in training (``u_y`` given), else y
+        quantized pass by pass against each pass's μ, as the coder rounds
+        it."""
         if u_y is not None:
             y_tilde = y + u_y
-        elif ctx == "checkerboard":
-            # Two passes: anchors from the hyper features, non-anchors
-            # conditioned on the quantized anchors.
-            am = self._anchor_mask(y)
-            m_a, _ = self.context.anchor_params(feats)
-            y_a = quantize_dequantize(y, m_a) * am
-            m_na, _ = self.context.nonanchor_params(feats, y_a)
-            y_tilde = y_a + quantize_dequantize(y, m_na) * (1 - am)
-        else:
-            mg = self.context.group_size
-            am = self._anchor_mask(y) if ctx == "space-channel" else None
-            parts = []
-            for g in range(self.context.num_groups):
-                y_prev = torch.cat(parts, -1) if parts else y[..., :0]
-                y_g = y[..., g * mg:(g + 1) * mg]
-                if am is None:          # channel-ar: one pass a group
-                    m_g, _ = self.context.group_params(g, feats, y_prev)
-                    parts.append(quantize_dequantize(y_g, m_g))
-                    continue
-                # space-channel: per group, anchors then non-anchors.
-                m_a, _ = self.context.anchor_params(g, feats, y_prev)
-                y_g_a = quantize_dequantize(y_g, m_a) * am
-                m_na, _ = self.context.nonanchor_params(g, feats, y_prev,
-                                                        y_g_a)
-                parts.append(y_g_a + quantize_dequantize(y_g, m_na)
-                             * (1 - am))
-            y_tilde = torch.cat(parts, -1)
-        means, scales = self.context(feats, y_tilde)
-        return y_tilde, means, scales
-
-    @staticmethod
-    def _anchor_mask(y: torch.Tensor) -> torch.Tensor:
-        return torch.from_numpy(checkerboard_mask(
-            y.shape[1], y.shape[2], anchor=True)).to(y.device)
+            _, means, scales = self.y_schedule().walk(z_tilde,
+                                                      passes.given(y_tilde))
+            return y_tilde, means, scales
+        return self.y_schedule().walk(
+            z_tilde, lambda p, mask, mean, scale: (
+                quantize_dequantize(y[..., p.channels], mean), mean, scale))
 
     @staticmethod
     def _bpp(x: torch.Tensor, lik_y: torch.Tensor, lik_z: torch.Tensor):
@@ -323,31 +290,10 @@ class CDCModel(nn.Module):
     def factorized_tables(self, max_symbols: int = 64) -> dict:
         return self.factorized.cdf_tables(max_symbols)
 
-    def hyper_decode(self, z_hat: torch.Tensor):
-        """ẑ → (μ, σ) for the Gaussian conditional."""
-        return self.h_s(z_hat)
-
-    def hyper_features(self, z_hat: torch.Tensor) -> torch.Tensor:
-        """ẑ → the context models' feature trunk."""
-        return self.h_s(z_hat, features=True)
-
-    def ctx_anchor_params(self, feats):
-        return self.context.anchor_params(feats)
-
-    def ctx_nonanchor_params(self, feats, y_anchor_masked):
-        return self.context.nonanchor_params(feats, y_anchor_masked)
-
-    def ctx_group_params(self, group: int, feats, y_prev):
-        """Channel-AR: (μ, σ) of channel group ``group`` given prior groups."""
-        return self.context.group_params(group, feats, y_prev)
-
-    def sc_anchor_params(self, group: int, feats, y_prev):
-        """Space-channel: group anchors from hyper + prior groups."""
-        return self.context.anchor_params(group, feats, y_prev)
-
-    def sc_nonanchor_params(self, group: int, feats, y_prev, y_g_anchor):
-        """Space-channel: group non-anchors (+ masked same-group anchors)."""
-        return self.context.nonanchor_params(group, feats, y_prev, y_g_anchor)
+    def y_schedule(self, stage=contextlib.nullcontext) -> passes.Schedule:
+        """The passes over y of h_s and the context module
+        (``codec.passes``); ``stage`` opens the spans of a coder."""
+        return passes.y_schedule(self.h_s, self.context, stage)
 
     # ---- decode side ----
 

@@ -8,10 +8,11 @@ four entropy models over y ("hyperprior", "checkerboard", "channel-ar",
 Encode (``compress``):
   1. analysis (``_analysis``): x → g_a → (× gain) → y, h_a → z,
      z symbols = round(z − medians); under the runtime's ``policy``;
-  2. the y passes (``_y_passes``): per pass, (μ, σ) from h_s / the context
-     model → uint8 Gaussian row indexes, symbols = round(y − μ) on the
-     device, fetched as int32 and rANS-coded on the host. 1, 2, G or 2·G
-     passes; a pass's decoded ŷ feeds the next pass's context;
+  2. the y passes (``_y_passes``, the model's schedule of ``codec.passes``):
+     per pass, (μ, σ) from h_s / the context model → uint8 Gaussian row
+     indexes, symbols = round(y − μ) on the device, fetched as int32 and
+     rANS-coded on the host. 1, 2, G or 2·G passes; a pass's decoded ŷ
+     feeds the next pass's context;
   3. host: z rANS encode, container write;
   4. optionally the in-band γ search (``_optimize_gamma``): the served
      decode of the fresh bitstream at each candidate γ, the PSNR argmax
@@ -63,7 +64,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tpucdc_torch.codec import GaussianConditional, checkerboard_mask
+from tpucdc_torch.codec import GaussianConditional
 from tpucdc_torch.config import PAD_MULTIPLE, Config
 from tpucdc_torch.entropy import (BitstreamHeader, RansCodec, read_bitstream,
                                   with_header_gamma, with_header_gamma_grid,
@@ -82,12 +83,16 @@ from tpucdc_torch.sampling.graphed import GraphedDenoiser
 from tpucdc_torch.utils.profiling import span
 
 
+def padded_hw(h: int, w: int, multiple: int = PAD_MULTIPLE):
+    """The (h, w) of an h×w image padded to a multiple."""
+    return h + (-h) % multiple, w + (-w) % multiple
+
+
 def pad_image(img: np.ndarray, multiple: int = PAD_MULTIPLE):
     """Reflect-pad an HWC image to a multiple; returns (padded, (h, w))."""
     h, w = img.shape[:2]
-    ph = (-h) % multiple
-    pw = (-w) % multiple
-    padded = np.pad(img, ((0, ph), (0, pw), (0, 0)), mode="reflect")
+    ph, pw = padded_hw(h, w, multiple)
+    padded = np.pad(img, ((0, ph - h), (0, pw - w), (0, 0)), mode="reflect")
     return padded, (h, w)
 
 
@@ -129,8 +134,11 @@ class CodecRuntime:
         cf = self.config.model.codec
         set_policy(self.model, policy)
         set_policy(self.model.h_s, F32_POLICY)
-        if cf.context != "hyperprior":
+        if self.model.context is not None:
             set_policy(self.model.context, F32_POLICY)
+        self._schedule = self.model.y_schedule(span)
+        # z, then one stream a pass over y.
+        self._n_streams = 1 + len(self._schedule.passes)
         self.policy = policy
         self.schedule = make_schedule(self.config.model.schedule.kind,
                                       self.config.model.schedule.num_steps)
@@ -146,8 +154,6 @@ class CodecRuntime:
         self.z_codec = RansCodec(self._z_tables, use_native=True)
         self.y_codec = RansCodec(self._y_tables, use_native=True)
         self._z_medians = model.z_medians().to(self.device)
-        self._context = cf.context
-        self._groups = cf.context_groups
         self._latent_c = cf.latent_channels
         self._hyper_c = cf.hyper_channels
         self._nq = cf.num_qualities
@@ -304,15 +310,11 @@ class CodecRuntime:
         """
         with span("codec.parse", bytes=len(blob)):
             hdr, streams = read_bitstream(blob)
-        want = 1 + {"hyperprior": 1, "checkerboard": 2,
-                    "channel-ar": self._groups,
-                    "space-channel": 2 * self._groups}[self._context]
-        if len(streams) != want:
+        if len(streams) != self._n_streams:
             raise ValueError(
-                f"a {self._context} bitstream holds {want} streams, "
-                f"this one {len(streams)}")
-        ph = hdr.height + ((-hdr.height) % PAD_MULTIPLE)
-        pw = hdr.width + ((-hdr.width) % PAD_MULTIPLE)
+                f"a {self.config.model.codec.context} bitstream holds "
+                f"{self._n_streams} streams, this one {len(streams)}")
+        ph, pw = padded_hw(hdr.height, hdr.width)
         z_shape = (1, ph // PAD_MULTIPLE, pw // PAD_MULTIPLE, self._hyper_c)
         z_sym = self.z_codec.decode(streams[0], self._z_rows(z_shape))
         return hdr, z_sym, streams[1:], (ph, pw)
@@ -322,23 +324,10 @@ class CodecRuntime:
         return z.to(torch.float32) + self._z_medians
 
     @torch.inference_mode()
-    def _params(self, fn, *args):
-        """One entropy-parameter pass: fn(*args) = (μ, σ) → (μ, uint8 row
-        indexes), both on the device."""
-        means, scales = fn(*args)
-        return means, self.gaussian.build_indexes(scales).to(torch.uint8)
-
-    def _hyper_stage(self, z_sym: np.ndarray):
-        """z symbols → (μ on the device, uint8 row indexes on the host)."""
-        with span("codec.hyper"):
-            means, idx = self._params(self.model.hyper_decode,
-                                      self._z_hat(z_sym))
-        return means, self._fetch(idx)
-
-    @torch.inference_mode()
     def _y_passes(self, z_sym: np.ndarray, y: Optional[torch.Tensor] = None,
                   streams=None):
-        """The Gaussian-coded passes over y, for both sides.
+        """The Gaussian-coded passes over y, for both sides: the model's
+        schedule (``codec.passes``) walked pass by pass.
 
         Encoder (``y`` given): each pass rounds y against its μ and codes
         the symbols; returns the streams written. Decoder (``streams``
@@ -352,80 +341,32 @@ class CodecRuntime:
         encoding = y is not None
         src = iter(() if encoding else streams)
         out = []
-        model, dev = self.model, self.device
-        hy, wy = 4 * z_sym.shape[1], 4 * z_sym.shape[2]
 
-        def code(y_part, means, idx_np, mask=None):
-            """One pass's symbols, [1, hy, wy, c] (the decoder's are zero
-            off ``mask``; the encoder's are masked by the caller)."""
+        def code(p, mask, means, scales):
+            idx = self.gaussian.build_indexes(scales).to(torch.uint8)
+            idx_np = self._fetch(idx if mask is None else idx[:, mask])
             if encoding:
-                sym = torch.round(y_part - means).to(torch.int32)
+                sym = torch.round(y[..., p.channels] - means).to(torch.int32)
                 out.append(self.y_codec.encode(
                     self._fetch(sym if mask is None else sym[:, mask]),
                     idx_np))
-                return sym
-            dec = torch.from_numpy(
-                self.y_codec.decode(next(src), idx_np)).to(dev)
-            if mask is None:
-                return dec.reshape(means.shape)
-            sym = torch.zeros(means.shape, dtype=torch.int32, device=dev)
-            sym[:, mask] = dec
-            return sym
-
-        if self._context == "hyperprior":
-            with span("codec.y_pass"):
-                means, idx = self._hyper_stage(z_sym)
-                return code(y, means, idx), means, out
-
-        with span("codec.hyper"):
-            feats = model.hyper_features(self._z_hat(z_sym))
-        am = torch.from_numpy(
-            checkerboard_mask(hy, wy, anchor=True)[..., 0] > 0).to(dev)
-        nam = ~am
-        am4 = am[None, :, :, None]
-        amf, ami = am4.to(torch.float32), am4.to(torch.int32)
-
-        def parity_passes(y_part, anchor_fn, nonanchor_fn):
-            """Anchors, then non-anchors given the decoded anchors."""
-            with span("codec.y_pass"):
-                m_a, idx_a = self._params(anchor_fn)
-                sym_a = code(y_part, m_a, self._fetch(idx_a[:, am]), am)
-                # int32 + f32 in f32: the sum of a small integer and an f32
-                # rounds as the f64 sum cast back to f32 does.
-                y_anchor = (sym_a.to(torch.float32) + m_a) * amf
-            with span("codec.y_pass"):
-                m_na, idx_na = self._params(nonanchor_fn, y_anchor)
-                sym_na = code(y_part, m_na, self._fetch(idx_na[:, nam]), nam)
-            return (sym_a * ami + sym_na * (1 - ami),
-                    m_a * amf + m_na * (1 - amf))
-
-        if self._context == "checkerboard":
-            y_sym, means = parity_passes(
-                y, lambda: model.ctx_anchor_params(feats),
-                lambda ya: model.ctx_nonanchor_params(feats, ya))
-            return y_sym, means, out
-
-        mg = self._latent_c // self._groups
-        sym_parts, mean_parts, dec_parts = [], [], []
-        for g in range(self._groups):
-            # Group 0's context is zero channels wide.
-            y_prev = (torch.cat(dec_parts, -1) if dec_parts
-                      else feats.new_zeros((1, hy, wy, 0)))
-            y_g = y[..., g * mg:(g + 1) * mg] if encoding else None
-            if self._context == "channel-ar":
-                with span("codec.y_pass"):
-                    mean_g, idx_g = self._params(model.ctx_group_params, g,
-                                                 feats, y_prev)
-                    sym_g = code(y_g, mean_g, self._fetch(idx_g))
             else:
-                sym_g, mean_g = parity_passes(
-                    y_g, lambda: model.sc_anchor_params(g, feats, y_prev),
-                    lambda ya: model.sc_nonanchor_params(g, feats, y_prev,
-                                                         ya))
-            sym_parts.append(sym_g)
-            mean_parts.append(mean_g)
-            dec_parts.append(sym_g.to(torch.float32) + mean_g)
-        return torch.cat(sym_parts, -1), torch.cat(mean_parts, -1), out
+                dec = torch.from_numpy(
+                    self.y_codec.decode(next(src), idx_np)).to(self.device)
+                if mask is None:
+                    sym = dec.reshape(means.shape)
+                else:
+                    sym = torch.zeros(means.shape, dtype=torch.int32,
+                                      device=self.device)
+                    sym[:, mask] = dec
+            return sym, means
+
+        # ŷ = symbols + μ, int32 + f32 in f32: the sum of a small integer
+        # and an f32 rounds as the f64 sum cast back to f32 does.
+        y_sym, means = self._schedule.walk(
+            self._z_hat(z_sym), code,
+            lambda outs: outs[0].to(torch.float32) + outs[1])
+        return y_sym, means, out
 
     def _decode_symbols(self, blob: bytes):
         """Bitstream → (header, ŷ symbols [device], μ [device], padded hw)."""
@@ -702,11 +643,8 @@ class CodecRuntime:
         version (5 B), the header (16 B in v3, 20 B in the v4 container a
         fractional quality needs), and per stream its framing (length and
         crc32, 8 B) and the rANS state flush (4 B)."""
-        n_streams = 1 + {"hyperprior": 1, "checkerboard": 2,
-                         "channel-ar": self._groups,
-                         "space-channel": 2 * self._groups}[self._context]
         prefix = 25 if float(quality) != int(quality) else 21
-        return (prefix + 12 * n_streams) * 8
+        return (prefix + 12 * self._n_streams) * 8
 
     def estimate_bpp(self, img_u8: np.ndarray, quality: float = 0) -> float:
         """Analytic bits per original pixel: the entropy models' rate the
@@ -823,7 +761,7 @@ class CodecRuntime:
             if noise is None:
                 if generator is None:
                     generator = torch.Generator(self.device).manual_seed(0)
-                ph, pw = pad_image(img_u8)[0].shape[:2]
+                ph, pw = padded_hw(*img_u8.shape[:2])
                 noise = torch.randn((1, ph, pw, 3), generator=generator,
                                     dtype=torch.float32, device=self.device)
             ref = img_u8.astype(np.float64)
@@ -861,8 +799,7 @@ class CodecRuntime:
         degenerate denominator fall back to γ=0.
         """
         h, w = ref.shape[:2]
-        ph = h + ((-h) % PAD_MULTIPLE)
-        pw = w + ((-w) % PAD_MULTIPLE)
+        ph, pw = padded_hw(h, w)
         t = self.GAMMA_TILE
         gh, gw = -(-ph // t), -(-pw // t)
         d = refined_u8.astype(np.float64) - mean_u8.astype(np.float64)
@@ -944,8 +881,7 @@ class CodecRuntime:
         with span("codec.decompress_tiled"):
             sample = self.config.sample
             y_hat, hdr = self.decode_latent(blob)
-            ph = hdr.height + ((-hdr.height) % PAD_MULTIPLE)
-            pw = hdr.width + ((-hdr.width) % PAD_MULTIPLE)
+            ph, pw = padded_hw(hdr.height, hdr.width)
             if steps is None:
                 steps = hdr.steps or sample.steps
             if steps == 0 and not self._synth:
