@@ -18,7 +18,13 @@ in order; any failure raises, exits non-zero and prints no result line:
                 and f32, plus adversarial shapes: GN with C·itemsize off 16
                 bytes, batch 3, one row, an unaligned pointer, |mean| ≫ σ;
                 attention with one query, one key, 65 keys, d in
-                {8, 24, 40, 64, 128}, strides off 16 bytes, scores × 50.
+                {8, 24, 40, 64, 128}, strides off 16 bytes, scores × 50;
+                the DiT's adaLN chain at the DiT decode's three calls, then
+                ragged rows (7, 6143) and widths (8, 72, 1000, 1152) with
+                y and h in each dtype: x' bit-equal to x + g·y, h in f32
+                within 2e-6 of the row's scale (|LN| + 1)·|1 + scale| +
+                |shift|, in bf16 different on at most 0.1 % of the values,
+                each by at most one bf16 step beyond that allowance.
                 Tolerances: f32 atol 1e-5 (attention 2e-5), GN+SiLU bf16
                 5e-2, as the JAX package's Pallas parity tests; attention
                 bf16 2e-2·max|reference|, since its outputs are too small
@@ -44,8 +50,11 @@ in order; any failure raises, exits non-zero and prints no result line:
                 same for ``dit_xl2_serving()`` (the flagship's codec and
                 head, a DiT-XL/2 drawn from a seed), graphed as served: 3
                 GN+SiLU launches (the head) and 140 attention launches (28
-                blocks × 5 steps), no more, all 140 of them
-                attention_mma_kernel_sm90 by the profiler's names.
+                blocks × 5 steps) and 425 adaLN launches (3 a block and 1
+                in the final layer, 85 a step), no more; by the profiler's
+                names all 140 attention launches are
+                attention_mma_kernel_sm90, dit_adaln_kernel runs 85 times a
+                step and no layer_norm kernel runs.
 
   7. encode   — the flagship encodes the 384×512 crop of the fixture with
                 ``compress(optimize_gamma="spatial")`` under F32_POLICY: the
@@ -230,11 +239,19 @@ HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 TOL = {"gn_silu": {"f32": 1e-5, "bf16": 5e-2},
        "attention": {"f32": 2e-5}}
+# adaLN: x' bit-equal; h in f32 within ADALN_F32_REL of the row's scale,
+# (|LN| + 1)·|1 + scale| + |shift| (LayerNorm's sums run in another order);
+# h in bf16 differs from the plain version on at most ADALN_BF16_SHARE of
+# the values, each by at most one bf16 step beyond that f32 allowance.
+ADALN_F32_REL = 2e-6
+ADALN_BF16_SHARE = 1e-3
 ATTN_BF16_REL = 2e-2   # attention bf16 bound, times max|reference|
 REPLACES = {"gn_silu": "tpucdc/ops/pallas/gn_silu.py:82",
-            "attention": "tpucdc/ops/pallas/flash_attention.py:45"}
+            "attention": "tpucdc/ops/pallas/flash_attention.py:45",
+            "adaln": "none (the JAX package has no DiT)"}
 SOURCES = {"gn_silu": "tpucdc_torch/csrc/gn_silu.cu",
-           "attention": "tpucdc_torch/csrc/attention.cu"}
+           "attention": "tpucdc_torch/csrc/attention.cu",
+           "adaln": "tpucdc_torch/csrc/dit_adaln.cu"}
 REPORT: dict = {}
 
 
@@ -332,7 +349,8 @@ def unet_launches(ucfg, levels=None) -> dict:
     all levels and the mid block, or only ``levels`` (the shallow segment of a
     block-cached step). A ResBlock launches GN+SiLU once (norm1), the output
     norm once; an attention block launches attention once, and each has a
-    cross-attention twin when the model has conditioning tokens."""
+    cross-attention twin when the model has conditioning tokens. The UNet
+    has no adaLN chain."""
     whole = levels is None
     levels = range(len(ucfg.channel_mult)) if whole else levels
     per_level = 2 * ucfg.num_res_blocks + 1          # down blocks + up blocks
@@ -340,7 +358,8 @@ def unet_launches(ucfg, levels=None) -> dict:
     attn = (per_level * sum(li in ucfg.attn_levels for li in levels)
             + (1 if whole else 0))
     return {"gn_silu": res + 1,
-            "attention": attn * (2 if ucfg.cond_token_dim else 1)}
+            "attention": attn * (2 if ucfg.cond_token_dim else 1),
+            "adaln": 0}
 
 
 def decode_launches(cfg, steps: int, cache_period: int = 1) -> dict:
@@ -455,6 +474,7 @@ def main() -> None:
     from tpucdc_torch.pipelines import codec_runtime
     from tpucdc_torch.presets import dit_xl2_serving
     # The wrapper modules (the package namespace re-exports their functions).
+    adaln_mod = importlib.import_module("tpucdc_torch.ops.adaln")
     attn_mod = importlib.import_module("tpucdc_torch.ops.attention")
     groupnorm = importlib.import_module("tpucdc_torch.ops.groupnorm")
     from tpucdc_torch.runtime import set_policy
@@ -560,13 +580,16 @@ def main() -> None:
 
     # Shape discovery: the shapes a path gives each kernel.
     orig_gn, orig_attn = groupnorm.gn_silu_cuda, attn_mod.attention_cuda
+    orig_adaln = adaln_mod.adaln_cuda
 
     def discover(run) -> dict:
         """The kernel shapes ``run`` hands the wrappers, with their counts,
         every UNet step run eagerly (a replayed CUDA graph calls no
-        wrapper)."""
+        wrapper). An adaLN call's key is (x's shape, y's dtype, h's dtype),
+        None where the call reads no y or writes no h."""
         into = {"gn_silu": collections.Counter(),
-                "attention": collections.Counter()}
+                "attention": collections.Counter(),
+                "adaln": collections.Counter()}
 
         def rec_gn(x, gamma, beta, num_groups, eps=1e-5):
             into["gn_silu"][(tuple(x.shape), num_groups)] += 1
@@ -580,13 +603,21 @@ def main() -> None:
             into["attention"][(tuple(q.shape), tuple(k.shape), views)] += 1
             return orig_attn(q, k, v, scale)
 
+        def rec_adaln(x, shift=None, scale=None, dtype=None, *, gate=None,
+                      y=None, eps=1e-6):
+            into["adaln"][(tuple(x.shape), None if y is None else y.dtype,
+                           None if shift is None else dtype)] += 1
+            return orig_adaln(x, shift, scale, dtype, gate=gate, y=y, eps=eps)
+
         groupnorm.gn_silu_cuda, attn_mod.attention_cuda = rec_gn, rec_attn
+        adaln_mod.adaln_cuda = rec_adaln
         engages = GraphedDenoiser.engages
         GraphedDenoiser.engages = lambda self, x_t: False
         try:
             run()
         finally:
             groupnorm.gn_silu_cuda, attn_mod.attention_cuda = orig_gn, orig_attn
+            adaln_mod.adaln_cuda = orig_adaln
             GraphedDenoiser.engages = engages
         return into
 
@@ -632,12 +663,23 @@ def main() -> None:
                 if k not in seen["attention"] and k not in new_attn]
     say("kernels", f"DiT decode shapes: attention {dict(dit_seen['attention'])}"
         f", GN+SiLU {dict(dit_seen['gn_silu'])}")
+    say("kernels", f"DiT decode adaLN calls: {dict(dit_seen['adaln'])}")
     check(dict(dit_seen["attention"]) == {
         ((1, 16, 6144, 72), (1, 16, 6144, 72), True): 140}
         and set(dit_seen["gn_silu"]) <= set(seen["gn_silu"])
         and sum(dit_seen["gn_silu"].values()) == 3,
         f"the DiT decode's shapes are not 140 x (1, 16, 6144, 72) on head "
         f"views and 3 of the head's GN+SiLU: {dit_seen}")
+    # 28 blocks x 5 steps of entry, mid and exit calls, and the final
+    # layer's entry call a step; no UNet path makes one.
+    tokens, bf16 = (1, 6144, 1152), torch.bfloat16
+    check(dict(dit_seen["adaln"]) == {(tokens, None, bf16): 145,
+                                      (tokens, bf16, bf16): 140,
+                                      (tokens, bf16, None): 140}
+          and not seen["adaln"] and not modes["adaln"],
+          f"the DiT decode's adaLN calls are not 145 entry, 140 mid and 140 "
+          f"exit calls at {tokens}, or a UNet path made one: "
+          f"{dit_seen['adaln']}, {seen['adaln']}, {modes['adaln']}")
 
     # ---- 3. kernels vs plain ----
     gen = torch.Generator(dev).manual_seed(0)
@@ -660,7 +702,7 @@ def main() -> None:
             for (b, h, n, d) in (qs, ks, ks))
 
     dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
-    errs = {"gn_silu": 0.0, "attention": 0.0}
+    errs = {"gn_silu": 0.0, "attention": 0.0, "adaln": 0.0}
     # Adversarial: C·itemsize off 16 bytes (the scalar path), batch 3, one
     # row, more images than resident blocks, the widest C (channel passes).
     path_gn = set(seen["gn_silu"]) | set(new_gn)
@@ -737,6 +779,74 @@ def main() -> None:
                            device=dev).to(dtypes[dn])
         attn_case((1, 2, 90, 24), (1, 2, 90, 24), dn, note="pitch 27",
                   qkv=tuple(wide[i][..., 3:27] for i in range(3)))
+
+    def adaln_inputs(shape, y_dtype):
+        """x, y and (shift, scale, gate) as views of one [B, 1, 6C]
+        projection, as the DiT block hands them."""
+        b, n, c = shape
+        x = 3.0 * torch.randn(shape, generator=gen, device=dev) + 0.5
+        y = torch.randn(shape, generator=gen, device=dev).to(y_dtype)
+        mod = torch.randn((b, 6 * c), generator=gen, device=dev)[:, None, :]
+        shift, scale, gate, *_ = mod.chunk(6, dim=-1)
+        return x, y, shift, scale, gate
+
+    def adaln_args(shape, y_dtype, h_dtype):
+        """(x, the norm's positional arguments, the residual's keywords)."""
+        x, y, shift, scale, gate = adaln_inputs(shape,
+                                                y_dtype or torch.bfloat16)
+        norm = () if h_dtype is None else (shift, scale, h_dtype)
+        return x, norm, ({} if y_dtype is None else {"gate": gate, "y": y})
+
+    def adaln_case(shape, y_dtype, h_dtype):
+        """The kernel against the plain version: x' bit-equal, h within its
+        bound; returns h's largest |difference|."""
+        x, norm, res = adaln_args(shape, y_dtype, h_dtype)
+        got_x, got_h = adaln_mod.adaln_cuda(x, *norm, **res)
+        want_x, want_h = adaln_mod.adaln_reference(x, *norm, **res)
+        torch.cuda.synchronize()
+        tag = f"adaln {shape} y {y_dtype} h {h_dtype}"
+        check(torch.equal(got_x, want_x), f"{tag}: x' is not x + g * y")
+        if h_dtype is None:
+            say("kernels", f"{tag}: x' bit-equal")
+            return 0.0
+        shift, scale = norm[:2]
+        xn = F.layer_norm(want_x.double(), (shape[-1],), eps=1e-6)
+        size = ((xn.abs() + 1.0) * (1.0 + scale.double()).abs()
+                + shift.double().abs())
+        diff = (got_h.double() - want_h.double()).abs()
+        if h_dtype == torch.float32:
+            err = (diff / size).max().item()
+            say("kernels", f"{tag}: x' bit-equal, h rel err {err:.3g} "
+                f"(bound {ADALN_F32_REL:g})")
+            check(err <= ADALN_F32_REL, f"{tag}: h rel err {err}")
+        else:
+            # One bf16 step at the larger magnitude beyond the f32
+            # allowance, which rounding near h = 0 spreads over many steps.
+            top = torch.maximum(got_h.double().abs(),
+                                want_h.double().abs()).clamp_min(1e-30)
+            step = torch.exp2(torch.floor(torch.log2(top)) - 7)
+            excess = ((diff - step - ADALN_F32_REL * size).clamp_min(0)
+                      / step).max().item()
+            share = (got_h != want_h).float().mean().item()
+            say("kernels", f"{tag}: x' bit-equal, h differs on "
+                f"{100 * share:.4f} % (bound {100 * ADALN_BF16_SHARE:g} %), "
+                f"{excess:g} bf16 steps beyond one step and the f32 "
+                f"allowance (bound 0)")
+            check(excess == 0.0 and share <= ADALN_BF16_SHARE,
+                  f"{tag}: h off by {excess} steps more, on {share}")
+        return (got_h.float() - want_h.float()).abs().max().item()
+
+    f32 = torch.float32
+    for key in dit_seen["adaln"]:
+        errs["adaln"] = max(errs["adaln"], adaln_case(*key))
+    # Ragged rows, widths off the 128-channel runs, the narrowest and the
+    # widest row taken; every dtype of y and h.
+    for shape in ((1, 7, 72), (1, 7, 1000), (1, 6143, 1152), (2, 6143, 1000),
+                  (3, 7, 1152), (2, 5, 8)):
+        for y_dtype, h_dtype in ((bf16, bf16), (f32, f32), (bf16, f32),
+                                 (f32, bf16), (None, bf16), (None, f32),
+                                 (bf16, None), (f32, None)):
+            adaln_case(shape, y_dtype, h_dtype)
 
     # ---- 4. fixture parity (F32_POLICY, TF32 off) ----
     hdr, z_sym, (y_bytes,), (ph, pw) = rt32._host_z_stage(blob)
@@ -869,7 +979,8 @@ def main() -> None:
         ``discover`` result), into ``shape_rows``; the sums over the path's
         calls, per kernel."""
         per = {"gn_silu": collections.defaultdict(float),
-               "attention": collections.defaultdict(float)}
+               "attention": collections.defaultdict(float),
+               "adaln": collections.defaultdict(float)}
         for (shape, groups), n in found["gn_silu"].items():
             x, g, b, G = gn_inputs(shape, groups, torch.bfloat16)
             c = shape[-1]
@@ -926,6 +1037,43 @@ def main() -> None:
                                "calls": n, **row})
             for key, val in row.items():
                 per["attention"][key] += n * val
+        for (shape, y_dtype, h_dtype), n in found["adaln"].items():
+            x, norm, res = adaln_args(shape, y_dtype, h_dtype)
+
+            def library():
+                """The PyTorch calls the port no longer makes: addcmul for
+                the residual, F.layer_norm, addcmul and the cast."""
+                xn = torch.addcmul(x, res["gate"], res["y"]) if res else x
+                if norm:
+                    shift, scale, dt = norm
+                    torch.addcmul(shift, F.layer_norm(
+                        xn, (shape[-1],), eps=1e-6), 1.0 + scale).to(dt)
+            elems, rows = x.numel(), shape[0] * shape[-1]
+            nbytes = 4 * elems                                   # x
+            if res:
+                nbytes += (res["y"].element_size() + 4) * elems + 4 * rows
+            if norm:
+                nbytes += (torch.finfo(h_dtype).bits // 8) * elems + 8 * rows
+            flops = (2 if res else 0) * elems + (8 if norm else 0) * elems
+            row = {
+                "ms": event_ms(lambda: adaln_mod.adaln_cuda(x, *norm, **res)),
+                "plain_ms": event_ms(
+                    lambda: adaln_mod.adaln_reference(x, *norm, **res)),
+                "library_ms": event_ms(library),
+                "device_ms": 1e-3 * device_us(
+                    lambda: adaln_mod.adaln_cuda(x, *norm, **res),
+                    ["dit_adaln_kernel"]),
+                "bytes_ms": 1e3 * nbytes / HBM_BYTES_S,
+                "ops_ms": 1e3 * flops / PEAK_FLOPS["f32"],
+            }
+            row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+            say("timing", f"[{path}] adaln {shape} y {y_dtype} h {h_dtype} "
+                f"x{n}: " + ", ".join(f"{k} {v:.4f}" for k, v in row.items()))
+            shape_rows.append({"kernel": "adaln", "path": path,
+                               "shape": list(shape), "y": str(y_dtype),
+                               "h": str(h_dtype), "calls": n, **row})
+            for key, val in row.items():
+                per["adaln"][key] += n * val
         return per
 
     per = time_shapes(seen, "main")
@@ -939,8 +1087,9 @@ def main() -> None:
     say("main", f"serving decode 768x512 (BF16_POLICY): launches {launches}")
     check(out.shape == (hdr7.height, hdr7.width, 3) and out.dtype == np.uint8,
           f"bad output {out.shape} {out.dtype}")
-    check(launches == {"gn_silu": 93, "attention": 60},
-          f"main path launches {launches} != 93 GN+SiLU and 60 attention")
+    check(launches == {"gn_silu": 93, "attention": 60, "adaln": 0},
+          f"main path launches {launches} != 93 GN+SiLU, 60 attention and "
+          f"no adaLN")
     expected = {k: sum(seen[k].values()) for k in seen}
     check(launches == expected, f"launches {launches} != shapes {expected}")
     # The DiT's decode, graphed as served: 28 blocks x 5 steps of attention
@@ -953,26 +1102,39 @@ def main() -> None:
         f"{dit_launches}")
     check(out.shape == (hdr7.height, hdr7.width, 3) and out.dtype == np.uint8,
           f"bad DiT output {out.shape} {out.dtype}")
-    check(dit_launches == {"gn_silu": 3, "attention": 140},
-          f"DiT decode launches {dit_launches} != 3 GN+SiLU and 140 "
-          f"attention")
+    adaln_per_step = 3 * dcfg.model.dit.depth + 1
+    check(dit_launches == {"gn_silu": 3, "attention": 140,
+                           "adaln": adaln_per_step * dcfg.sample.steps},
+          f"DiT decode launches {dit_launches} != 3 GN+SiLU, 140 "
+          f"attention and {adaln_per_step} adaLN a step")
     expected = {k: sum(dit_seen[k].values()) for k in dit_seen}
     check(dit_launches == expected,
           f"DiT launches {dit_launches} != shapes {expected}")
     # Which d > 64 kernel those 140 were: the Hopper instantiation's launches
     # in one graphed DiT decode, by name from the profiler (the wrappers'
-    # count does not tell the two apart).
+    # count does not tell the two apart). The same trace holds the adaLN
+    # chain: dit_adaln_kernel 3 x 28 + 1 times a step and no LayerNorm.
     with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
         rtD.decompress(blob768)
         torch.cuda.synchronize()
-    dit_sm90 = sum(e.count for e in prof.key_averages()
+    by_name = prof.key_averages()
+    dit_sm90 = sum(e.count for e in by_name
                    if "attention_mma_kernel_sm90" in e.key)
+    dit_adaln = sum(e.count for e in by_name if "dit_adaln_kernel" in e.key)
+    dit_layer_norm = sum(e.count for e in by_name if "layer_norm" in e.key)
     say("main", f"DiT-XL/2 serving decode: {dit_sm90} launches of "
-        f"attention_mma_kernel_sm90 (profiler)")
+        f"attention_mma_kernel_sm90, {dit_adaln} of dit_adaln_kernel, "
+        f"{dit_layer_norm} of a layer_norm kernel (profiler)")
     check(dit_sm90 == dit_launches["attention"],
           f"{dit_sm90} of the DiT decode's {dit_launches['attention']} "
           f"attention launches took attention_mma_kernel_sm90")
+    check(dit_adaln == adaln_per_step * dcfg.sample.steps
+          and dit_layer_norm == 0,
+          f"the graphed DiT decode launched dit_adaln_kernel {dit_adaln} "
+          f"times (not {adaln_per_step} a step) and a layer_norm kernel "
+          f"{dit_layer_norm} times")
     REPORT["dit_decode_sm90_launches"] = dit_sm90
+    REPORT["dit_decode_adaln_launches"] = dit_adaln
     del rtD, dmodel
     torch.cuda.empty_cache()
 
@@ -1151,7 +1313,8 @@ def main() -> None:
     enc_launches = dict(_kernels.LAUNCHES)
     say("main", f"compress(optimize_gamma='spatial') 768x512 (BF16_POLICY): "
         f"launches {enc_launches}; {len(blob_s)} B")
-    check(enc_launches == {"gn_silu": 6 * 93, "attention": 6 * 60},
+    check(enc_launches == {"gn_silu": 6 * 93, "attention": 6 * 60,
+                          "adaln": 0},
           f"compress launches {enc_launches} != six served decodes")
     check(rt16.decompress(blob_s).shape == img768.shape, "bad decode shape")
 
@@ -1231,9 +1394,10 @@ def main() -> None:
         path_launches["guidance" if kwargs else "block_cached"] = n
         REPORT.setdefault("modes", {})[key] = {
             "max_diff": worst, "within1": within1, "launches": n}
-    check(path_launches["guidance"] == {"gn_silu": 93, "attention": 60}
+    check(path_launches["guidance"] == {"gn_silu": 93, "attention": 60,
+                                        "adaln": 0}
           and path_launches["block_cached"] == {"gn_silu": 79,
-                                                "attention": 36},
+                                                "attention": 36, "adaln": 0},
           "derived launch counts are not 93/60 and 79/36")
     stage = lambda rt, **kw: rt._device_stage(
         y7, m7, hdr7.steps, 0.0, gamma7, ph7, pw7, **kw)
@@ -1290,7 +1454,7 @@ def main() -> None:
         f"{np.array_equal(t_ref, one_by_one)}; launches {n} "
         f"(derived {want_n})")
     check(worst <= 1, "batched tiles differ from tiles decoded alone")
-    check(n == want_n == {"gn_silu": 93, "attention": 60},
+    check(n == want_n == {"gn_silu": 93, "attention": 60, "adaln": 0},
           f"tiled decode launches {n}")
     path_launches["tiled_6"] = n
 
@@ -1410,7 +1574,7 @@ def main() -> None:
         f"{ddim_ms:.0f} ms then {ddim_ms2:.0f} ms "
         f"({ddim_ms2 / lsteps:.2f} ms a step); launches {n} (derived "
         f"{want_n}); repeatable {np.array_equal(ddim_u8, ddim_again)}")
-    check(n == want_n == {"gn_silu": 2303, "attention": 2200},
+    check(n == want_n == {"gn_silu": 2303, "attention": 2200, "adaln": 0},
           f"large DDIM launches {n} != {want_n}")
     check(ddim_u8.shape == img768.shape and ddim_u8.dtype == np.uint8
           and np.array_equal(ddim_u8, ddim_again), "large DDIM decode")
@@ -1565,7 +1729,8 @@ def main() -> None:
                                     img768))
 
     kernels = []
-    for name in ("gn_silu", "attention"):
+    # The main path's times; None for a kernel it does not launch (adaLN).
+    for name in ("gn_silu", "attention", "adaln"):
         p = per[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
@@ -1573,17 +1738,19 @@ def main() -> None:
             "launches_compress_spatial": enc_launches[name],
             **{f"launches_{path}": n[name]
                for path, n in path_launches.items()},
-            "max_abs_err": errs[name], "ms": p["ms"],
-            "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
-            "bound_by": ("bytes" if p["bytes_ms"] >= p["ops_ms"]
-                         else "operations"),
-            "library_ms": p["library_ms"],
+            "max_abs_err": errs[name], "ms": p.get("ms"),
+            "plain_ms": p.get("plain_ms"), "bound_ms": p.get("bound_ms"),
+            "bound_by": (None if not p else "bytes"
+                         if p["bytes_ms"] >= p["ops_ms"] else "operations"),
+            "library_ms": p.get("library_ms"),
             **{f"dit_decode_{k}": per_dit[name][k]
                for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
             **({"dit_decode_sm90_launches": dit_sm90}
-               if name == "attention" else {})})
+               if name == "attention" else {}),
+            **({"dit_decode_adaln_launches": dit_adaln}
+               if name == "adaln" else {})})
     REPORT["kernels"] = kernels
-    REPORT["device_ms"] = {name: per[name]["device_ms"] for name in per}
+    REPORT["device_ms"] = {name: per[name].get("device_ms") for name in per}
     REPORT["dit_decode_device_ms"] = {name: per_dit[name]["device_ms"]
                                       for name in per_dit}
     REPORT["shapes"] = shape_rows
@@ -1896,7 +2063,8 @@ def phase_train(torch, dev, port, state, img768, discover, device_us,
     say("train", f"one recipe train step (batch {tc.batch_size}, crop "
         f"{tc.crop_size}, BF16_POLICY): launches {step_launches} (derived "
         f"{want}: the forward's; the backward launches no kernel)")
-    check(step_launches == want == {"gn_silu": 21, "attention": 12},
+    check(step_launches == want == {"gn_silu": 21, "attention": 12,
+                                    "adaln": 0},
           f"train step launches {step_launches} != {want}")
     rep["step_launches"] = step_launches
 
@@ -2423,7 +2591,7 @@ def phase_mesh(torch, dev, port, rt16, big_blob, img768) -> dict:
         f"({card})")
     check(n_params == 398 and params_equal and ema_equal,
           "the mesh fit differs from the one-card fit")
-    check(mesh_launches == {"gn_silu": 21, "attention": 12},
+    check(mesh_launches == {"gn_silu": 21, "attention": 12, "adaln": 0},
           f"mesh train step launches {mesh_launches}")
     del states["none"]
     cfg_t = api.build_config("flagship", {
@@ -2467,7 +2635,7 @@ def phase_mesh(torch, dev, port, rt16, big_blob, img768) -> dict:
         f"ms in turns (N M M N): none {ms['none']}, mesh {ms['mesh']} "
         f"({card})")
     check(worst <= 1, "the mesh tiled decode differs from the one-card one")
-    check(tiled_launches == {"gn_silu": 93, "attention": 60},
+    check(tiled_launches == {"gn_silu": 93, "attention": 60, "adaln": 0},
           f"mesh tiled decode launches {tiled_launches}")
     rep["tiled"] = {"max_lsb": worst, "within1": within1, "ms": ms,
                     "launches": tiled_launches,

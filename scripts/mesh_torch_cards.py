@@ -274,7 +274,7 @@ def worker(args) -> None:
         if on_card:
             per_step = every_rank({n: v / n_steps for n, v in
                                    launches.items()})
-            check(all(p == {"gn_silu": 21, "attention": 12}
+            check(all(p == {"gn_silu": 21, "attention": 12, "adaln": 0}
                       for p in per_step),
                   f"{label} fit launches a step by rank {per_step}")
         if label not in finals:
@@ -365,7 +365,7 @@ def worker(args) -> None:
         check(all(p[0] <= 1 and p[2] >= 35 and p[3] for p in per_rank),
               "the mesh tiled decode differs from the one-card one")
         if on_card:
-            check(all(p[4] == {"gn_silu": 93, "attention": 60}
+            check(all(p[4] == {"gn_silu": 93, "attention": 60, "adaln": 0}
                       for p in per_rank),
                   f"mesh tiled decode launches {per_rank}")
         rep["tiled"][f"{w}x{h}"] = {

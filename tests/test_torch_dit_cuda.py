@@ -88,4 +88,4 @@ def test_graphed_dit_decode_is_the_eager_one(card, dit_runtime):
             assert _calls(records, "dit.block") == 0
     _kernels.reset_launches()
     rt.decompress(blob)
-    assert _kernels.LAUNCHES == {"gn_silu": 3, "attention": 140}
+    assert _kernels.LAUNCHES == {"gn_silu": 3, "attention": 140, "adaln": 425}

@@ -344,7 +344,7 @@ def test_flagship_decodes_with_three_eps(card, flagship, image768):
             assert _calls(records, "unet.capture") == 0
     _kernels.reset_launches()
     rt.decompress(blob)
-    assert _kernels.LAUNCHES == {"gn_silu": 93, "attention": 60}
+    assert _kernels.LAUNCHES == {"gn_silu": 93, "attention": 60, "adaln": 0}
 
 
 @pytest.mark.cuda

@@ -18,7 +18,7 @@ import torch
 from tpucdc.ops.attention import attention_reference as jax_attention
 from tpucdc.ops.groupnorm import _gn_reference as jax_gn
 
-from tpucdc_torch.ops import attention, group_norm, group_norm_silu
+from tpucdc_torch.ops import adaln, attention, group_norm, group_norm_silu
 from tpucdc_torch.ops import _kernels
 from tpucdc_torch.ops.attention import (attention_reference,
                                         attention_tiled_reference)
@@ -94,7 +94,11 @@ def test_cpu_wrappers_launch_no_kernel():
     group_norm_silu(x, torch.ones(32), torch.zeros(32), 16)
     q = torch.randn(1, 2, 8, 16)
     attention(q, q, q)
-    assert _kernels.LAUNCHES == {"gn_silu": 0, "attention": 0}
+    x = torch.randn(1, 4, 16)
+    mod = torch.randn(1, 1, 48)
+    adaln(x, mod[..., :16], mod[..., 16:32], torch.bfloat16,
+          gate=mod[..., 32:], y=x)
+    assert _kernels.LAUNCHES == {"gn_silu": 0, "attention": 0, "adaln": 0}
 
 
 def _head_views(arrays, h, d, jdt, tdt):

@@ -25,10 +25,14 @@ DDIM sampling does not) and the grid goes back to pixels by depth-to-space.
 The cross-attention tokens of the conditioning head are not read.
 
 The residual stream, the norms and the modulation are f32; the products run
-in the policy's compute dtype. The eager forward opens the spans
-``dit.embed`` [tokens], ``dit.block`` (one a block) and ``dit.final``; the
-served decode replays it as a CUDA graph (``sampling.graphed``), whose
-spans are ``unet.capture`` and ``unet.replay``.
+in the policy's compute dtype. The chain between two products (the gated
+residual add, LayerNorm, the modulation and the rounding to the compute
+dtype) is one ``ops.adaln`` call, one hand-written kernel on the card: three
+a block (entry, mid-block, exit) and one in the final layer. The eager
+forward opens the spans ``dit.embed`` [tokens], ``dit.block`` (one a block)
+and ``dit.final``; the served decode replays it as a CUDA graph
+(``sampling.graphed``), whose spans are ``unet.capture`` and
+``unet.replay``.
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ from torch import nn
 
 from tpucdc_torch.config import DiTConfig
 from tpucdc_torch.diffusion.unet import _depth_to_space, _space_to_depth
-from tpucdc_torch.ops import attention, sinusoidal_time_embed
+from tpucdc_torch.ops import adaln, attention, sinusoidal_time_embed
 from tpucdc_torch.ops.layers import Conv, Dense
 from tpucdc_torch.runtime import DEFAULT_POLICY, Policy
 from tpucdc_torch.utils.profiling import span
@@ -49,13 +53,6 @@ from tpucdc_torch.utils.profiling import span
 LN_EPS = 1e-6
 FREQUENCY_DIM = 256     # sinusoidal frequencies of DiT's timestep embedder
 IMAGE_CHANNELS = 3      # of the net output
-
-
-def _norm_modulate(x: torch.Tensor, shift: torch.Tensor,
-                   scale: torch.Tensor) -> torch.Tensor:
-    """LN(x)·(1 + scale) + shift over the last axis, f32."""
-    h = F.layer_norm(x, (x.shape[-1],), eps=LN_EPS)
-    return torch.addcmul(shift, h, 1.0 + scale)
 
 
 def pos_embed_2d(dim: int, rows: int, cols: int,
@@ -103,9 +100,11 @@ class DiTBlock(nn.Module):
         dt = self.policy.compute_dtype
         mod = self.adaLN(c_act, dt).to(torch.float32)[:, None, :]
         s1, b1, g1, s2, b2, g2 = mod.chunk(6, dim=-1)
-        x = x + g1 * self._attend(_norm_modulate(x, s1, b1), dt)
-        h = F.gelu(self.fc1(_norm_modulate(x, s2, b2), dt), approximate="tanh")
-        return x + g2 * self.fc2(h, dt)
+        _, h = adaln(x, s1, b1, dt, eps=LN_EPS)
+        x, h = adaln(x, s2, b2, dt, gate=g1, y=self._attend(h, dt), eps=LN_EPS)
+        h = F.gelu(self.fc1(h, dt), approximate="tanh")
+        x, _ = adaln(x, gate=g2, y=self.fc2(h, dt))
+        return x
 
 
 class DiT(nn.Module):
@@ -177,7 +176,8 @@ class DiT(nn.Module):
             dt = self.policy.compute_dtype
             mod = self.final_adaLN(c_act, dt).to(torch.float32)[:, None, :]
             shift, scale = mod.chunk(2, dim=-1)
-            out = self.final_linear(_norm_modulate(h, shift, scale), dt)
+            _, h = adaln(h, shift, scale, dt, eps=LN_EPS)
+            out = self.final_linear(h, dt)
             p = cfg.patch
             b = out.shape[0]
             out = out.reshape(b, rows, cols, p, p, -1).permute(0, 1, 3, 2, 4, 5)

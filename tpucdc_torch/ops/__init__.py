@@ -1,6 +1,8 @@
-"""Ops: noise schedules, time embedding, NHWC layers, and the two kernels
-(GN+SiLU, attention), each with its plain PyTorch version."""
+"""Ops: noise schedules, time embedding, NHWC layers, and the three kernels
+(GN+SiLU, attention, the DiT's adaLN chain), each with its plain PyTorch
+version."""
 
+from tpucdc_torch.ops.adaln import adaln, adaln_reference
 from tpucdc_torch.ops.attention import attention, attention_reference
 from tpucdc_torch.ops.groupnorm import (gn_reference, group_norm,
                                         group_norm_silu)
@@ -17,5 +19,7 @@ __all__ = [
     "gn_reference",
     "attention",
     "attention_reference",
+    "adaln",
+    "adaln_reference",
     "sinusoidal_time_embed",
 ]

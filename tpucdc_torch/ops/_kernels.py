@@ -8,9 +8,9 @@ the stream are passed as ``c_void_p``; each entry point returns
 ``cudaGetLastError()`` and the wrapper raises if it is not 0.
 
 ``LAUNCHES`` counts, per kernel, the device launches made through the
-wrappers in ``ops/groupnorm.py`` and ``ops/attention.py``: one per call for
-each (GN+SiLU is one cooperative launch). A run reads it to show that a path
-went through the kernels.
+wrappers in ``ops/groupnorm.py``, ``ops/attention.py`` and ``ops/adaln.py``:
+one per call for each (GN+SiLU is one cooperative launch). A run reads it to
+show that a path went through the kernels.
 """
 
 from __future__ import annotations
@@ -25,13 +25,13 @@ from tpucdc_torch.utils.build import BUILD_DIR, build_lock, is_stale
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = (CSRC / "gn_silu.cu", CSRC / "attention.cu",
-           CSRC / "attention_sm90.cu")
+           CSRC / "attention_sm90.cu", CSRC / "dit_adaln.cu")
 LIBRARY = BUILD_DIR / "libtpucdc_torch_kernels.so"
 PTXAS_LOG = BUILD_DIR / "ptxas.log"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 # Device launches per kernel; each wrapper adds 1 where it launches.
-LAUNCHES = {"gn_silu": 0, "attention": 0}
+LAUNCHES = {"gn_silu": 0, "attention": 0, "adaln": 0}
 
 _lib = None
 
@@ -92,12 +92,16 @@ def library():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        ll = ctypes.c_longlong
         lib.tpucdc_gn_silu.restype = i
         lib.tpucdc_gn_silu.argtypes = [p, p, p, p, p, i, i, i, i, i, f, i, p]
         lib.tpucdc_attention.restype = i
         lib.tpucdc_attention.argtypes = [p, p, p, p, i, i, i, i, i,
                                          ctypes.POINTER(ctypes.c_longlong),
                                          f, i, p]
+        lib.tpucdc_dit_adaln.restype = i
+        lib.tpucdc_dit_adaln.argtypes = [p, p, p, p, p, ll, ll, ll, p, p, i,
+                                         i, i, f, i, i, p]
         _lib = lib
     return _lib
 
